@@ -7,21 +7,41 @@ NVIDIA H100.
 Phases, each of which must pass (any failure exits nonzero):
 
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving path from the sources in the
-     checkout (nvcc, sm_90a; into build/);
-  3. kernel phase: each kernel against its plain PyTorch version on the
-     card, fp32 and bf16, at the serving path's shapes (Llama-2-7B
-     heads, a 128-bucketed dense cache, and GQA at Llama-2-70B head
-     widths), with its time, the plain version's, SDPA's over the same
-     (gathered) K/V, and the bandwidth bound;
-  4. serve phase, fp32: full Llama-2-7B (32 layers, seeded random
+  2. build every CUDA kernel of the serve and train paths from the
+     sources in the checkout (one nvcc per source, all started together,
+     sm_90a; into build/), printing ptxas's registers and spills for
+     each kernel instantiation;
+  3. decode kernel phase: each decode kernel against its plain PyTorch
+     version on the card, fp32 and bf16, at the serving path's shapes
+     (Llama-2-7B heads, a 128-bucketed dense cache, and GQA at
+     Llama-2-70B head widths), with its time, the plain version's,
+     SDPA's over the same (gathered) K/V, and the bandwidth bound;
+  4. flash kernel phase: flash_fwd and the flash_bwd_dq / flash_bwd_dkv
+     pair against their plain versions (o, lse, dq, dk, dv), fp32 and
+     bf16, at (a) GPT-2 small training, b 8 h 12 l 1024 d 64 causal,
+     (b) b 1 l 4096, (c) q 512 / k 1024 causal, (d) non-causal l 1024,
+     (e) Llama-2-7B heads, b 1 h 32 l 2048 d 128; each kernel's time,
+     the plain versions', SDPA's forward and forward+backward, and the
+     bound max(flops / peak, bytes / 3.35 TB/s);
+  5. serve phase, fp32: full Llama-2-7B (32 layers, seeded random
      weights) through init_inference + ServingScheduler, more requests
      than slots; every request's greedy tokens must equal its own
      generate() tokens;
-  5. serve phase, bf16: the same requests; tokens/s, TTFT and step times
+  6. serve phase, bf16: the same requests; tokens/s, TTFT and step times
      are printed, agreement with fp32 is printed, not asserted (the
      step-time breakdown is deepspeed_tpu_torch/profiling/decode_profile.py);
-  6. the launch count of every kernel over phases 4-5 (must be > 0).
+  7. train phase, fp32 oracle: GPT-2 small width at 2 layers, batch 2 x
+     1024, one step through the flash kernels and one through the plain
+     reference attention from the same weights; the loss, the global
+     grad norm and the attention projections' gradients must agree;
+  8. train phase, bf16: full GPT-2 small (124M parameters, batch 8 x
+     1024) through initialize + train_batch with bench.py's config,
+     3 warm-up and 10 timed steps, then a gas-4 window at micro batch 2;
+     losses must be finite and fall; tokens/s, ms/step, peak memory and
+     MFU are printed (the step breakdown is
+     deepspeed_tpu_torch/profiling/train_profile.py);
+  9. the launch count of every kernel over its path (decode kernels over
+     phases 5-6, flash kernels over phase 8; each must be > 0).
 
 Each line of output is one JSON object; the last is
 {"ok": true, "device": {...}}.  TF32 is off for matmuls and cuDNN so
@@ -30,6 +50,7 @@ the fp32 phase is a true fp32 oracle.
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -87,6 +108,23 @@ def time_ms(torch, calls, reps=10):
 def sdpa_inputs(q, k, v):
     """[b, l, h, d] -> SDPA's [b, h, l, d] views (no copies)."""
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def ptxas_usage(logs):
+    """ptxas -v's report per kernel instantiation: the mangled entry name
+    with its registers and spill line."""
+    out, entry, spill = [], None, ""
+    for log in logs.values():
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1] if "'" in ln else ln.strip()
+            elif "spill" in ln:
+                spill = ln.strip()
+            elif "registers" in ln and entry is not None:
+                out.append({"kernel": entry, "usage": ln.strip(),
+                            "spill": spill})
+                entry = None
+    return out
 
 
 # ------------------------------------------------------------ kernel phase
@@ -200,6 +238,239 @@ def dense_case(torch, dec, name, b, h, kv_h, d, max_len, positions, dtype,
     return out
 
 
+def attended_pairs(lq, lk, causal):
+    """(query, key) pairs the inputs need: query i sees keys
+    j <= i + lk - lq when causal."""
+    if not causal:
+        return lq * lk
+    return sum(min(lk, max(0, i + lk - lq + 1)) for i in range(lq))
+
+
+def flash_case(torch, fl, name, b, lq, lk, h, d, causal, dtype, rotations,
+               seed):
+    """One flash shape: the forward kernel and the backward pair against
+    their plain versions, then kernel / plain / SDPA times and bounds."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dtype_name = str(dtype).replace("torch.", "")
+    sets = []
+    for _ in range(rotations):
+        q, k, v, do = (torch.randn(b, n, h, d, generator=g,
+                                   device=dev).to(dtype)
+                       for n in (lq, lk, lk, lq))
+        sets.append((q, k, v, do))
+    q, k, v, do = sets[0]
+    o, lse = fl.flash_fwd(q, k, v, causal=causal)
+    o_p, lse_p = fl.flash_fwd_plain(q, k, v, causal=causal)
+    grads = fl.flash_bwd(q, k, v, o_p, lse_p, do, causal=causal)
+    grads_p = fl.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal=causal)
+    torch.cuda.synchronize()
+    live = lse_p > fl.NEG_INF / 2
+    if not torch.equal(lse[~live], lse_p[~live]):
+        fail(f"{name} {dtype_name}: fully masked rows must give lse = "
+             "NEG_INF")
+    errs = {"o": (o.float() - o_p.float()).abs().max().item(),
+            "lse": (lse[live] - lse_p[live]).abs().max().item()}
+    for label, got, want in zip(("dq", "dk", "dv"), grads, grads_p):
+        errs[label] = (got.float() - want.float()).abs().max().item()
+    bad = {k_: e for k_, e in errs.items() if not e < TOL[dtype_name]}
+    if bad:
+        fail(f"{name} {dtype_name}: kernel vs plain max abs err {bad} >= "
+             f"{TOL[dtype_name]}")
+
+    # per-set forward results and backward inputs (untimed)
+    bwd_in = []
+    for q_, k_, v_, do_ in sets:
+        o_, lse_ = fl.flash_fwd(q_, k_, v_, causal=causal)
+        bwd_in.append((fl._bwd_inputs(q_, k_, v_, o_, lse_, do_, None),
+                       (q_, k_, v_, o_, lse_, do_)))
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ms = {
+        "fwd": time_ms(torch, [
+            lambda s=s: fl.flash_fwd(*s[:3], causal=causal) for s in sets]),
+        "bwd_dq": time_ms(torch, [
+            lambda a=a: fl._launch_bwd("flash_bwd_dq", *a[0], (dq,), causal,
+                                       None) for a in bwd_in]),
+        "bwd_dkv": time_ms(torch, [
+            lambda a=a: fl._launch_bwd("flash_bwd_dkv", *a[0], (dk, dv),
+                                       causal, None) for a in bwd_in]),
+        "bwd": time_ms(torch, [
+            lambda a=a: fl.flash_bwd(*a[1], causal=causal) for a in bwd_in]),
+        "plain_fwd": time_ms(torch, [
+            lambda s=s: fl.flash_fwd_plain(*s[:3], causal=causal)
+            for s in sets]),
+        "plain_bwd": time_ms(torch, [
+            lambda a=a: fl.flash_bwd_plain(*a[1], causal=causal)
+            for a in bwd_in]),
+    }
+    # SDPA, timed here only (the port never calls it): is_causal is
+    # top-left aligned, so an offset case passes the bottom-right mask
+    mask = None
+    if causal and lq != lk:
+        mask = (torch.arange(lk, device=dev)[None, :] <=
+                torch.arange(lq, device=dev)[:, None] + (lk - lq))
+    kw = dict(attn_mask=mask, is_causal=causal and mask is None)
+    ms["sdpa_fwd"] = time_ms(torch, [
+        lambda s=s: F.scaled_dot_product_attention(*sdpa_inputs(*s[:3]), **kw)
+        for s in sets])
+    # forward + backward through autograd, captured whole in the graph
+    leaves = [x.detach().clone().requires_grad_() for x in sets[0][:3]]
+    do_t = sets[0][3].transpose(1, 2)
+    ms["sdpa_fwd_bwd"] = time_ms(torch, [
+        lambda: F.scaled_dot_product_attention(
+            *sdpa_inputs(*leaves), **kw).backward(do_t)])
+
+    pairs = b * h * attended_pairs(lq, lk, causal)
+    item = q.element_size()
+    rows_q, rows_k, stats = b * lq * h * d, b * lk * h * d, b * h * lq * 4
+    bound = {
+        "fwd": bound_ms((2 * rows_q + 2 * rows_k) * item + stats,
+                        4 * pairs * d, dtype_name),
+        # dq alone: S, dP and dS.K; dk/dv alone: S, dP, P^T.dO and dS^T.Q
+        "bwd_dq": bound_ms((3 * rows_q + 2 * rows_k) * item + 2 * stats,
+                           6 * pairs * d, dtype_name),
+        "bwd_dkv": bound_ms((2 * rows_q + 4 * rows_k) * item + 2 * stats,
+                            8 * pairs * d, dtype_name),
+        # the pair as one fused function: five products
+        "bwd": bound_ms((3 * rows_q + 4 * rows_k) * item + 2 * stats,
+                        10 * pairs * d, dtype_name)}
+    out = {"phase": "flash_kernel", "case": name, "dtype": dtype_name,
+           "batch": b, "q_len": lq, "k_len": lk, "heads": h, "head_dim": d,
+           "causal": causal, "max_abs_err": errs, "tol": TOL[dtype_name],
+           "ms": ms, "bound_ms": {k_: v_[0] for k_, v_ in bound.items()},
+           "bound_by": {k_: v_[1] for k_, v_ in bound.items()},
+           "sdpa_bwd_ms": ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"]}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------- train phase
+
+
+def train_batches(torch, seed, n, batch, seq, vocab):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [{"input_ids": torch.randint(0, vocab, (batch, seq), generator=g,
+                                        device="cuda")} for _ in range(n)]
+
+
+def train_oracle(torch, fl, deepspeed_tpu_torch, seed):
+    """fp32, GPT-2 small width at 2 layers, batch 2 x 1024: one step
+    through the flash kernels and one through the plain reference
+    attention, from the same weights and batch.  At initialisation the
+    loss hardly depends on attention, so the attention projections'
+    gradients (which pass through the backward kernels) are compared
+    too."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2, gpt2_small
+    config = {"train_micro_batch_size_per_gpu": 2,
+              "optimizer": {"type": "AdamW",
+                            "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "gradient_clipping": 1.0, "steps_per_print": 1000000}
+    batch = train_batches(torch, seed + 1, 1, 2, 1024, 50257)[0]
+    out = {}
+    for impl in ("flash", "reference"):
+        fl.reset_launch_counts()
+        engine = deepspeed_tpu_torch.initialize(
+            model=GPT2(gpt2_small(num_layers=2, attn_impl=impl)),
+            config=config, seed=seed)[0]
+        loss = float(engine.backward(engine.forward(batch)).detach())
+        grads = {n: p.grad.clone() for n, p in
+                 engine.module.named_parameters() if ".attn." in n}
+        engine.step()
+        out[impl] = (loss, engine.get_global_grad_norm(), grads,
+                     sum(fl.launch_counts().values()))
+        del engine
+    (lf, gf, grf, nf), (lr_, gr, grr, nr) = out["flash"], out["reference"]
+    attn_err = max(((grf[n] - grr[n]).abs().max() /
+                    grr[n].abs().max()).item() for n in grr)
+    tol = {"loss_abs": 1e-4, "grad_norm_rel": 1e-4, "attn_grad_rel": 1e-4}
+    res = {"phase": "train_fp32_oracle", "model": "gpt2-small width",
+           "layers": 2, "batch": 2, "seq": 1024,
+           "loss_flash": lf, "loss_reference": lr_,
+           "grad_norm_flash": gf, "grad_norm_reference": gr,
+           "attn_grad_max_rel_err": attn_err,
+           "flash_launches": nf, "reference_flash_launches": nr, "tol": tol}
+    emit(res)
+    if nf != 6 or nr != 0:
+        fail(f"the flash step launched {nf} flash kernels (want 6: 2 "
+             f"layers x fwd/dq/dkv), the reference step {nr} (want 0)")
+    if not (abs(lf - lr_) < tol["loss_abs"] and
+            abs(gf - gr) < tol["grad_norm_rel"] * abs(gr) and
+            attn_err < tol["attn_grad_rel"]):
+        fail("fp32 train step through the flash kernels disagrees with "
+             "the reference attention")
+
+
+def train_bf16(torch, deepspeed_tpu_torch, seed):
+    """Full GPT-2 small in bf16 over fp32 masters with bench.py's config:
+    3 warm-up steps and 10 timed steps cycling 2 seeded batches, then a
+    gas-4 window at micro batch 2."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2, gpt2_small
+    batch, seq = 8, 1024
+    cfg = gpt2_small(dtype="bfloat16")
+    config = {"train_micro_batch_size_per_gpu": batch,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW",
+                            "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "bf16": {"enabled": True},
+              "zero_optimization": {"stage": 1},
+              "steps_per_print": 1000000}
+    torch.cuda.reset_peak_memory_stats()
+    engine = deepspeed_tpu_torch.initialize(model=GPT2(cfg), config=config,
+                                            seed=seed)[0]
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    data = train_batches(torch, seed + 2, 2, batch, seq, cfg.vocab_size)
+    losses = [engine.train_batch(batches=[data[i % 2]], sync=False)
+              for i in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i in range(3, 13):
+        losses.append(engine.train_batch(batches=[data[i % 2]], sync=False))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    tokens_per_s = 10 * batch * seq / wall
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * \
+        cfg.hidden_size * seq
+    del engine
+    torch.cuda.empty_cache()
+
+    config4 = dict(config, train_micro_batch_size_per_gpu=2,
+                   gradient_accumulation_steps=4)
+    engine = deepspeed_tpu_torch.initialize(model=GPT2(cfg), config=config4,
+                                            seed=seed)[0]
+    window = [{"input_ids": x["input_ids"][i:i + 2]}
+              for x in data[:1] for i in range(0, batch, 2)]
+    gas4 = [engine.train_batch(batches=window)]      # warm-up window
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    gas4.append(engine.train_batch(batches=window))
+    torch.cuda.synchronize()
+    gas4_wall = time.monotonic() - t0
+    del engine
+    torch.cuda.empty_cache()
+    res = {"phase": "train_bf16", "model": "gpt2-small", "params": n_params,
+           "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_heads, "vocab": cfg.vocab_size, "batch": batch,
+           "seq": seq, "zero_stage": 1, "losses": losses,
+           "timed_steps": 10, "ms_per_step": wall * 1e3 / 10,
+           "tokens_per_s": tokens_per_s,
+           "mfu_vs_989_tflops": tokens_per_s * flops_per_token / BF16_FLOPS,
+           "max_memory_allocated_bytes": peak,
+           "gas4_micro2_losses": gas4, "gas4_window_ms": gas4_wall * 1e3,
+           "gas4_tokens_per_s": batch * seq / gas4_wall}
+    emit(res)
+    if not all(math.isfinite(x) for x in losses + gas4):
+        fail(f"non-finite bf16 training loss: {losses} {gas4}")
+    # the last step (i = 12) sees batch 0 again, as the first did
+    if not losses[12] < losses[0]:
+        fail(f"bf16 loss on batch 0 did not fall: {losses[0]} -> "
+             f"{losses[12]}")
+    return res
+
+
 # ------------------------------------------------------------- serve phase
 
 
@@ -247,6 +518,7 @@ def main():
     from deepspeed_tpu_torch.models.llama import Llama, llama2_7b
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.attention import decode as dec
+    from deepspeed_tpu_torch.ops.attention import flash as fl
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -260,8 +532,7 @@ def main():
 
     t0 = time.monotonic()
     logs = op_builder.build_all()
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_usage(logs)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "ops": sorted(logs), "ptxas": ptxas})
 
@@ -285,7 +556,20 @@ def main():
                    1024, [1023 - 100 * i for i in range(8)], dtype,
                    rotations=2, seed=5)
 
-    torch.cuda.empty_cache()
+    # ---- flash kernel phase: the training path's shapes
+    flash_results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for name, b, lq, lk, h, d, causal in (
+                ("a gpt2-small train", 8, 1024, 1024, 12, 64, True),
+                ("b long tiled", 1, 4096, 4096, 12, 64, True),
+                ("c offset q512/k1024", 2, 512, 1024, 12, 64, True),
+                ("d non-causal", 2, 1024, 1024, 12, 64, False),
+                ("e llama2-7b heads", 1, 2048, 2048, 32, 128, True)):
+            flash_results[(name[0], dn)] = flash_case(
+                torch, fl, name, b, lq, lk, h, d, causal, dtype,
+                rotations=2, seed=10 + ord(name[0]))
+            torch.cuda.empty_cache()
 
     # ---- serve phase, fp32 (the token-exact oracle run)
     dec.reset_launch_counts()
@@ -345,8 +629,17 @@ def main():
           "tpot_ms_p50": s["tpot_ms_p50"], "tbt_ms_p50": s["tbt_ms_p50"],
           "preemptions": s["preemptions"],
           "agreement_with_fp32": agree})
-
     counts = dec.launch_counts()
+    del model, engine, sched32, sched16, logits
+    torch.cuda.empty_cache()
+
+    # ---- train phases: the fp32 oracle, then the bf16 main path
+    train_oracle(torch, fl, deepspeed_tpu_torch, args.seed)
+    torch.cuda.empty_cache()
+    fl.reset_launch_counts()
+    train_bf16(torch, deepspeed_tpu_torch, args.seed)
+    counts.update(fl.launch_counts())
+
     kernels = []
     for name, key, source, replaces in (
             ("paged_decode_fwd", "paged",
@@ -363,10 +656,39 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kernels[0]["also_replaces"] = "deepspeed_tpu/ops/attention/decode.py:411"
+    # the flash kernels at shape (a), bf16: the train phase's shape; the
+    # plain and SDPA times of the backward cover the pair (dq, dk, dv)
+    r = flash_results[("a", "bfloat16")]
+    source = "deepspeed_tpu_torch/ops/attention/csrc/flash_attention.cu"
+    for name, key, errs, replaces, extra in (
+            ("flash_fwd", "fwd", ("o", "lse"),
+             "deepspeed_tpu/ops/attention/flash.py:242",
+             {"also_replaces": "deepspeed_tpu/ops/attention/flash.py:260"}),
+            ("flash_bwd_dq", "bwd_dq", ("dq",),
+             "deepspeed_tpu/ops/attention/flash.py:463",
+             {"also_replaces": "deepspeed_tpu/ops/attention/flash.py:442 "
+              "(with flash_bwd_dkv)"}),
+            ("flash_bwd_dkv", "bwd_dkv", ("dk", "dv"),
+             "deepspeed_tpu/ops/attention/flash.py:479",
+             {"also_replaces": "deepspeed_tpu/ops/attention/flash.py:442 "
+              "(with flash_bwd_dq)"})):
+        fwd = key == "fwd"
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": max(r["max_abs_err"][e] for e in errs),
+            "ms": r["ms"][key],
+            "plain_ms": r["ms"]["plain_fwd" if fwd else "plain_bwd"],
+            "bound_ms": r["bound_ms"][key], "bound_by": r["bound_by"][key],
+            "library_ms": r["ms"]["sdpa_fwd"] if fwd else r["sdpa_bwd_ms"],
+            **extra})
+        if not fwd:
+            kernels[-1]["plain_and_library_cover"] = "dq, dk and dv"
     emit({"kernels": kernels})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
-        fail(f"kernels never launched on the serving path: {missing}")
+        fail(f"kernels never launched on the serve and train paths: "
+             f"{missing}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

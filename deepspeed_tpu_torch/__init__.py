@@ -12,6 +12,42 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger  # noqa: F401
 __version__ = "0.1.0"
 
 
+def initialize(args=None, model=None, optimizer=None, training_data=None,
+               lr_scheduler=None, config=None, config_params=None,
+               loss_fn=None, seed=0, device=None):
+    """Build a training engine (``deepspeed_tpu.initialize``).
+
+    ``model`` is a native :class:`~deepspeed_tpu_torch.models.gpt2.GPT2`;
+    ``config`` a dict or JSON path (``config_params`` and
+    ``args.deepspeed_config`` are the older spellings); ``loss_fn(module,
+    batch) -> scalar`` defaults to next-token cross-entropy; ``seed``
+    draws the initial weights; ``device`` is ``None`` (the CUDA device:
+    raises when no card is visible) or ``"cpu"``.  Returns ``(engine,
+    optimizer, None, lr_scheduler)``: there is no training dataloader
+    yet (ROADMAP.md Queue A15), nor a client optimizer (Queue A18)."""
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    if optimizer is not None:
+        raise NotImplementedError(
+            "a client optimizer is not ported to the PyTorch package yet: "
+            "see ROADMAP.md Queue A18 (the other optimizers)")
+    if training_data is not None:
+        raise NotImplementedError(
+            "training_data is not ported to the PyTorch package yet: see "
+            "ROADMAP.md Queue A15 (the dataloader)")
+    if config is None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    if model is None or config is None:
+        raise ValueError("deepspeed_tpu_torch.initialize needs a model and "
+                         "a config")
+    engine = DeepSpeedEngine(model, config, loss_fn=loss_fn,
+                             lr_scheduler=lr_scheduler, seed=seed,
+                             device=device)
+    return engine, engine.optimizer, None, engine.lr_scheduler
+
+
 def init_inference(model=None, config=None, **kwargs):
     """Build an inference engine (``deepspeed_tpu.init_inference``).
 

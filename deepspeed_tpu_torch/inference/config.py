@@ -1,8 +1,9 @@
 """Inference config (counterpart of ``deepspeed_tpu/inference/config.py``).
 
 The same pydantic surface for the fields this port runs — ``dtype``,
-``kv_cache_dtype``, ``max_out_tokens``, ``paged_kernel`` and
-``tensor_parallel`` (tp_size 1) — plus ``device``.  A field the JAX
+``kv_cache_dtype``, ``max_out_tokens``, ``paged_kernel``,
+``replace_with_kernel_inject`` and ``tensor_parallel`` (tp_size 1) —
+plus ``device``.  A field the JAX
 package accepts but the port does not run yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item; any other
 unknown field raises ``ValueError``.  Nothing is accepted and ignored.
@@ -15,9 +16,6 @@ from pydantic import BaseModel, ConfigDict, Field
 # JAX-package config fields the port does not run yet -> ROADMAP.md item
 UNPORTED_FIELDS = {
     "quant": "Queue A2 (weight-only int8 serving, kernel B7)",
-    "replace_with_kernel_inject": "Queue A9 (training slice, flash "
-                                  "kernels B1/B2)",
-    "kernel_inject": "Queue A9 (training slice, flash kernels B1/B2)",
     "enable_cuda_graph": "Queue A5 (overlap and CUDA-graph horizons)",
     "mesh": "Queue A10 (multi-GPU serving)",
     "mesh_dcn": "Queue A10 (multi-GPU serving)",
@@ -54,6 +52,10 @@ class DeepSpeedInferenceConfig(BaseModel):
     # tensor runs the plain PyTorch version; "force": the kernel is
     # required, so a CPU engine is refused (ops/attention/decode.py)
     paged_kernel: str = "auto"
+    # "kernel injection": serve a fresh copy of the model whose
+    # attn_impl is "auto" (the flash kernels on a CUDA tensor), never
+    # touching the caller's module (inference/engine.py:170-178)
+    replace_with_kernel_inject: bool = Field(False, alias="kernel_inject")
     # None -> CUDA (raises when no card is visible); "cpu" runs the
     # plain PyTorch versions of the kernels on the host
     device: Optional[Any] = None

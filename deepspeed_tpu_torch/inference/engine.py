@@ -16,6 +16,8 @@ Queue A6 and raises; greedy is an fp32 argmax whose ties go to the
 lowest token id (``torch.argmax`` returns the first maximal index).
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -60,6 +62,15 @@ class InferenceEngine:
         self.dtype = DTYPES[config.dtype]
         self.kv_dtype = DTYPES[config.kv_cache_dtype]
         self.seed = int(seed)
+        if config.replace_with_kernel_inject and \
+                model.cfg.attn_impl != "auto":
+            # a fresh module (never the caller's, which may be live
+            # elsewhere) with the caller's weights and attn_impl "auto"
+            fresh = type(model)(dataclasses.replace(model.cfg,
+                                                    attn_impl="auto"),
+                                device="meta").to_empty(device=self.device)
+            fresh.load_state_dict(model.state_dict())
+            model = fresh
         self.module = model.to(device=self.device, dtype=self.dtype).eval()
         self.module.requires_grad_(False)
         if params is not None:

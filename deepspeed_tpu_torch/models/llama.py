@@ -3,7 +3,8 @@ PyTorch — counterpart of ``deepspeed_tpu/models/llama.py``.
 
 ``forward(ids, positions=None, cache=None)`` returns logits, or
 ``(logits, cache)`` with a cache.  Four branches are ported: no cache
-(full causal forward), the dense cache of ``generate()``, and the paged
+(full causal forward, through the flash kernels or the plain attention
+as ``cfg.attn_impl`` says), the dense cache of ``generate()``, and the paged
 cache's chunked prefill (``"slot"`` in the cache) and continuous-batch
 decode (``"active"``).  The speculative-decoding verify branch
 (``"widths"``, ROADMAP.md Queue A3), sequence-parallel prefill and LoRA
@@ -24,6 +25,8 @@ from torch import nn
 from deepspeed_tpu_torch.ops.attention.decode import (_repeat_kv,
                                                       decode_attention,
                                                       paged_decode_attention)
+from deepspeed_tpu_torch.ops.attention.flash import (flash_attention,
+                                                     resolve_attn_impl)
 from deepspeed_tpu_torch.ops.attention.reference import (apply_rotary_emb,
                                                          mha_reference)
 from deepspeed_tpu_torch.ops.quant.kv import (paged_gather,
@@ -43,6 +46,12 @@ class LlamaConfig:
     max_seq_len: int = 4096
     rope_base: float = 10000.0
     rms_eps: float = 1e-5
+    # no-cache attention: "auto" (flash on a CUDA tensor, reference on a
+    # CPU one) | "reference" | "flash" (models/llama.py:235-241)
+    attn_impl: str = "auto"
+
+    def __post_init__(self):
+        resolve_attn_impl(self.attn_impl, torch.device("cpu"))
 
     @property
     def head_dim(self):
@@ -96,8 +105,11 @@ class LlamaAttention(nn.Module):
 
         new_cache = None
         if cache is None:
-            out = mha_reference(q, _repeat_kv(k, h // kv_h),
-                                _repeat_kv(v, h // kv_h), causal=True)
+            k_full, v_full = _repeat_kv(k, h // kv_h), _repeat_kv(v, h // kv_h)
+            if resolve_attn_impl(cfg.attn_impl, x.device) == "flash":
+                out = flash_attention(q, k_full, v_full, causal=True)
+            else:
+                out = mha_reference(q, k_full, v_full, causal=True)
         elif "k_pages" in cache:
             pt = cache["page_table"]
             ps, max_pages = cache["k_pages"].shape[1], pt.shape[1]

@@ -127,7 +127,22 @@ class DecodeAttentionBuilder(CUDAOpBuilder):
         lib.decode_fwd.restype = _i
 
 
-ALL_OPS = {b.NAME: b for b in (DecodeAttentionBuilder(),)}
+class FlashAttentionBuilder(CUDAOpBuilder):
+    NAME = "flash_attention"
+    SOURCE = os.path.join("attention", "csrc", "flash_attention.cu")
+
+    def _annotate(self, lib):
+        tail = [_p, _i, _i, _i, _i, _i,          # strides b h lq lk d
+                _i, _f, _i, _p]                  # causal scale dtype stream
+        lib.flash_fwd.argtypes = [_p, _p, _p, _p, _p] + tail  # q k v o lse
+        lib.flash_bwd_dq.argtypes = [_p] * 7 + tail  # q k v do lse delta dq
+        lib.flash_bwd_dkv.argtypes = [_p] * 8 + tail  # ... dk dv
+        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+            fn.restype = _i
+
+
+ALL_OPS = {b.NAME: b for b in (DecodeAttentionBuilder(),
+                               FlashAttentionBuilder())}
 
 
 def build_all():

@@ -1,0 +1,240 @@
+"""DeepSpeedEngine: the training engine of the PyTorch port (counterpart
+of ``deepspeed_tpu/runtime/engine.py``).  Build it with
+:func:`deepspeed_tpu_torch.initialize`.
+
+One device, fp32 master parameters, the compute dtype of the config
+(``bf16.enabled``) equal to the model's ``cfg.dtype``: the model casts
+the masters inside autograd, so gradients land on them in fp32.  A train
+step is the JAX engine's math, run eagerly:
+
+* ``fwd_bwd`` (``engine.py:851``): ``loss * scale / gas`` backward, with
+  ``scale`` 1 (fp16 loss scaling is ROADMAP.md Queue A11); over a gas
+  window the fp32 gradients sum in ``.grad``;
+* ``apply_grads`` (``:880``): divide by ``gradient_predivide_factor``,
+  take the global norm, clip by ``min(1, clip / (norm + 1e-6))``, then
+  the optimizer at the learning rate of the schedule for this step.
+
+``forward`` / ``backward`` / ``step`` are the per-micro-batch API;
+``train_batch`` runs a whole window and ``train_loop`` K windows, the
+same math as K ``train_batch`` calls.  ``jit`` and ``lax.scan`` have no
+counterpart: PyTorch runs eagerly, so ``train_loop`` is a Python loop
+whose losses stay on the device until the caller reads them.
+"""
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.models.gpt2 import (GPT2, gpt2_loss_fn,
+                                             init_gpt2_params)
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
+                                                      get_lr_schedule)
+from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+from deepspeed_tpu_torch.utils.logging import log_dist
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _unported(what, item):
+    return NotImplementedError(f"{what} is not ported to the PyTorch "
+                               f"package yet: see ROADMAP.md {item}")
+
+
+class DeepSpeedEngine:
+    """Training engine over a native :class:`GPT2`."""
+
+    def __init__(self, model, config, loss_fn=None, lr_scheduler=None,
+                 seed=0, device=None):
+        if not isinstance(model, GPT2):
+            raise _unported(f"training a {type(model).__name__}",
+                            "Queue A10 (the other models)")
+        self.device = resolve_device(device)
+        self._config = DeepSpeedConfig.load(config)
+        self.compute_dtype = DTYPES[self._config.precision_dtype]
+        if model.cfg.dtype != self.compute_dtype:
+            raise ValueError(
+                f"the config computes in {self._config.precision_dtype} but "
+                f"the model's cfg.dtype is {model.cfg.dtype}: set both "
+                "(bf16.enabled and GPTConfig(dtype=...)) to the same type")
+        self.module = model.to(device=self.device, dtype=torch.float32)
+        self.loss_fn = loss_fn or self._default_loss_fn()
+        opt = self._config.optimizer
+        self.optimizer_name = opt.type or "adamw"
+        self.optimizer, self._base_lr = build_optimizer(
+            self.optimizer_name, opt.params, self.module.parameters())
+        self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        self.gas = self._config.gradient_accumulation_steps
+        self.micro_steps = 0
+        self.global_steps = 0
+        self.global_samples = 0
+        self._pending = None
+        self._last_metrics = {}
+        self.init_params(seed)
+
+    # ------------------------------------------------------------ config
+    def get_global_grad_norm(self):
+        norm = self._last_metrics.get("grad_norm")
+        return None if norm is None else float(norm)
+
+    def get_lr(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler.get_lr()
+        return [self._base_lr]
+
+    def _configure_lr_scheduler(self, client_scheduler):
+        if client_scheduler is not None:
+            if not isinstance(client_scheduler, LRScheduler) and \
+                    callable(client_scheduler) and \
+                    not hasattr(client_scheduler, "get_lr"):
+                return LRScheduler(client_scheduler)
+            return client_scheduler
+        s = self._config.scheduler
+        if s.type:
+            return LRScheduler(get_lr_schedule(s.type, s.params))
+        return None
+
+    def _default_loss_fn(self):
+        """``module(input_ids)`` -> logits, next-token cross-entropy
+        (``engine.py:421`` without the MoE aux term)."""
+        def loss_fn(module, batch):
+            return gpt2_loss_fn(module(batch["input_ids"]), batch)
+        return loss_fn
+
+    # ------------------------------------------------------------ params
+    def init_params(self, seed):
+        """Fresh fp32 masters drawn from ``seed`` with a ``torch.Generator``
+        on the engine's device (the flax initializers of the JAX model)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        init_gpt2_params(self.module, gen)
+        n = sum(p.numel() for p in self.module.parameters())
+        log_dist(f"engine initialized: {n / 1e6:.2f}M params, zero_stage="
+                 f"{self._config.zero_optimization_stage}, dtype="
+                 f"{self._config.precision_dtype}, device={self.device}",
+                 ranks=[0])
+        return self
+
+    @torch.no_grad()
+    def set_params(self, state_dict):
+        """Load fp32 masters (tensors or numpy arrays), e.g. weights carried
+        from a JAX engine by ``models.gpt2.gpt2_params_from_jax``."""
+        state = {k: torch.as_tensor(v).to(self.device, torch.float32)
+                 for k, v in state_dict.items()}
+        self.module.load_state_dict(state, strict=True)
+        return self
+
+    def get_params(self):
+        """The fp32 masters, ``{name: tensor}``."""
+        return {k: v.detach() for k, v in self.module.state_dict().items()}
+
+    # ------------------------------------------------------------- steps
+    def _put_batch(self, batch):
+        out = {}
+        for key, value in batch.items():
+            t = value if isinstance(value, torch.Tensor) else \
+                torch.as_tensor(np.asarray(value))
+            if not t.is_floating_point():
+                t = t.long()
+            out[key] = t.to(self.device, non_blocking=True)
+        return out
+
+    def forward(self, batch):
+        """The loss of one micro batch (the graph is kept for backward)."""
+        if self._pending is not None:
+            raise RuntimeError("backward() must run between forward() "
+                               "calls (for a loss-only pass use eval_batch)")
+        self._pending = self.loss_fn(self.module, self._put_batch(batch))
+        return self._pending
+
+    def backward(self, loss=None):
+        """Accumulate ``loss / gas`` gradients into the fp32 masters."""
+        if self._pending is None:
+            raise RuntimeError("backward() must follow forward()")
+        loss, self._pending = self._pending, None
+        (loss.float() / self.gas).backward()
+        self.micro_steps += 1
+        self.global_samples += self._config.train_micro_batch_size_per_gpu
+        return loss
+
+    def step(self):
+        """At the gradient-accumulation boundary: clip and apply the
+        optimizer at this step's learning rate, then advance the
+        schedule.  Mid-window it does nothing (returns None)."""
+        if self.micro_steps % self.gas != 0:
+            return None
+        if self._pending is not None:
+            raise RuntimeError("step() after forward() without backward()")
+        metrics = self._apply_grads(float(self.get_lr()[0]))
+        self.global_steps += 1
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.step()
+        self._last_metrics = metrics
+        return metrics
+
+    @torch.no_grad()
+    def _apply_grads(self, lr):
+        params = list(self.module.parameters())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        predivide = float(self._config.gradient_predivide_factor or 1.0)
+        if predivide != 1.0:
+            torch._foreach_div_(grads, predivide)
+        gnorm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        clip = float(self._config.gradient_clipping or 0.0)
+        if clip > 0.0:
+            torch._foreach_mul_(
+                grads, torch.clamp(clip / (gnorm + 1e-6), max=1.0))
+        self.optimizer.step(grads, lr)
+        for p in params:
+            p.grad = None
+        return {"grad_norm": gnorm, "lr": lr}
+
+    def train_batch(self, data_iter=None, batches=None, sync=True):
+        """One optimizer step over a window of ``gas`` micro batches;
+        returns their mean loss (a float, or a device scalar with
+        ``sync=False``)."""
+        if batches is None:
+            if data_iter is None:
+                raise _unported("train_batch without batches or a data "
+                                "iterator (a training dataloader)",
+                                "Queue A15 (the dataloader)")
+            batches = [next(data_iter) for _ in range(self.gas)]
+        if len(batches) != self.gas:
+            raise ValueError(f"need {self.gas} micro batches, got "
+                             f"{len(batches)}")
+        losses = []
+        for batch in batches:
+            losses.append(self.backward(self.forward(batch)).detach())
+        metrics = self.step()
+        mean = torch.stack(losses).float().mean()
+        if self.global_steps % self._config.steps_per_print == 0:
+            log_dist(f"step={self.global_steps} loss={float(mean):.4f} "
+                     f"lr={float(metrics['lr']):.3e} grad_norm="
+                     f"{float(metrics['grad_norm']):.3f}", ranks=[0])
+        return float(mean) if sync else mean
+
+    def train_loop(self, batches, sync=False):
+        """``len(batches) // gas`` optimizer steps; returns the window mean
+        losses ([K] on the device, or numpy with ``sync=True``)."""
+        if len(batches) % self.gas:
+            raise ValueError(f"train_loop needs whole windows: "
+                             f"{len(batches)} micro batches with gas="
+                             f"{self.gas}")
+        losses = torch.stack([
+            self.train_batch(batches=batches[i:i + self.gas], sync=False)
+            for i in range(0, len(batches), self.gas)])
+        return losses.cpu().numpy() if sync else losses
+
+    @torch.no_grad()
+    def eval_batch(self, batch):
+        """Loss-only forward (a device scalar)."""
+        return self.loss_fn(self.module, self._put_batch(batch))
+
+    # -------------------------------------------------------- checkpoint
+    def save_checkpoint(self, save_dir, tag=None, client_state=None):
+        raise _unported("save_checkpoint", "Queue A8 (checkpoints)")
+
+    def load_checkpoint(self, load_dir, tag=None, **kwargs):
+        raise _unported("load_checkpoint", "Queue A8 (checkpoints)")

@@ -1,0 +1,231 @@
+"""Flash-attention parity of the PyTorch port against the JAX package.
+
+On the CPU the port's ``flash_attention`` runs its plain versions through
+the same ``autograd.Function`` that launches the kernels on the card; the
+JAX side runs its Pallas kernels in interpret mode, as
+``tests/unit/ops/test_flash_attention.py`` does, and its custom VJP
+through ``jax.vjp`` with a random output cotangent (and a random lse
+cotangent where ``with_lse`` is on).  Inputs are made with numpy from a
+seed and handed to both.
+
+Tolerances: atol 2e-5 on o, lse, dq, dk and dv in fp32 (the same
+products summed in other orders, over at most 512 keys); atol 2e-2 in
+bf16 (operands and p rounded to bf16 at the same points on both sides,
+the roundings of the outputs differ by an ulp).  Tests marked ``cuda``
+hold the kernels against the plain versions on the card at 1e-4 (fp32)
+and 3e-2 (bf16), and skip where there is none.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.attention import flash as jflash
+from deepspeed_tpu_torch.ops.attention import flash as tflash
+
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(seed, b, lq, lk, h, d):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, lq, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, lk, h, d)).astype(np.float32)
+    v = rng.normal(size=(b, lk, h, d)).astype(np.float32)
+    do = rng.normal(size=(b, lq, h, d)).astype(np.float32)
+    dlse = rng.normal(size=(b, h, lq)).astype(np.float32)
+    return q, k, v, do, dlse
+
+
+def _np(x):
+    return np.asarray(x.detach().float().numpy() if isinstance(
+        x, torch.Tensor) else jnp.asarray(x, jnp.float32))
+
+
+def _jax_side(q, k, v, do, dlse, *, causal, block, with_lse, dtype):
+    def f(q_, k_, v_):
+        return jflash.flash_attention(q_, k_, v_, causal=causal,
+                                      block_q=block, block_k=block,
+                                      with_lse=True)
+    args = [jnp.asarray(x, JNP[dtype]) for x in (q, k, v)]
+    (o, lse), vjp = jax.vjp(f, *args)
+    cot_lse = jnp.asarray(dlse) if with_lse else jnp.zeros_like(lse)
+    grads = vjp((jnp.asarray(do, JNP[dtype]), cot_lse))
+    return (o, lse) + tuple(grads)
+
+
+def _port_side(q, k, v, do, dlse, *, causal, with_lse, dtype):
+    ts = [torch.tensor(x, dtype=TORCH[dtype], requires_grad=True)
+          for x in (q, k, v)]
+    o, lse = tflash.flash_attention(*ts, causal=causal, with_lse=True)
+    cots = [torch.tensor(do, dtype=TORCH[dtype])]
+    outs = [o]
+    if with_lse:
+        outs.append(lse)
+        cots.append(torch.tensor(dlse))
+    torch.autograd.backward(outs, cots)
+    return (o, lse) + tuple(t.grad for t in ts)
+
+
+# (name, lq, lk, causal, block, with_lse, dtype): block is the JAX
+# kernel's tiling, which decides the Pallas kernel the JAX side runs
+CASES = [
+    # row 4 (+ row 6 chunked): whole-sequence causal block, 2 column chunks
+    ("row4_1blk_causal_chunked", 512, 512, True, None, False, "float32"),
+    # rows 5, 7, 8: the tiled forward and the dq / dkv backward pair
+    ("rows578_tiled_causal", 256, 256, True, 128, False, "float32"),
+    # row 6 with one chunk: the fused single-block backward
+    ("row6_fused_1chunk", 128, 128, True, None, False, "float32"),
+    ("non_causal_tiled", 256, 256, False, 128, False, "float32"),
+    # causal offset k_len - q_len = 128 > 0
+    ("causal_offset", 128, 256, True, 128, False, "float32"),
+    # the lse cotangent folded into delta, tiled and fused
+    ("lse_cotangent_tiled", 256, 256, True, 128, True, "float32"),
+    ("lse_cotangent_fused", 128, 128, True, None, True, "float32"),
+    ("bf16_tiled", 256, 256, True, 128, True, "bfloat16"),
+    # q_len > k_len causal: the first 128 query rows see no key
+    ("fully_masked_rows", 256, 128, True, 128, True, "float32"),
+]
+
+
+@pytest.mark.parametrize("name,lq,lk,causal,block,with_lse,dtype", CASES,
+                         ids=[c[0] for c in CASES])
+def test_flash_matches_jax_pallas(name, lq, lk, causal, block, with_lse,
+                                  dtype):
+    inputs = _inputs(sum(map(ord, name)), 1, lq, lk, 2, 16)
+    want = _jax_side(*inputs, causal=causal, block=block, with_lse=with_lse,
+                     dtype=dtype)
+    got = _port_side(*inputs, causal=causal, with_lse=with_lse, dtype=dtype)
+    for label, w, g in zip(("o", "lse", "dq", "dk", "dv"), want, got):
+        assert g.shape == w.shape, label
+        np.testing.assert_allclose(_np(g), _np(w), atol=ATOL[dtype],
+                                   err_msg=label)
+    if name == "fully_masked_rows":
+        o, lse, dq = (_np(x) for x in got[:3])
+        dead = lq - lk
+        assert not o[:, :dead].any() and not dq[:, :dead].any()
+        assert (lse[:, :, :dead] == tflash.NEG_INF).all()
+
+
+def test_flash_attention_with_lse_on_bh_layout_matches_jax():
+    q, k, v, do, dlse = _inputs(7, 1, 128, 128, 3, 16)
+    to3 = [np.ascontiguousarray(x[0].transpose(1, 0, 2))
+           for x in (q, k, v, do)]
+    dl3 = dlse[0][..., None]
+
+    def f(q_, k_, v_):
+        return jflash.flash_attention_with_lse(q_, k_, v_, causal=True,
+                                               scale=0.25, block=128)
+    (o, lse), vjp = jax.vjp(f, *map(jnp.asarray, to3[:3]))
+    want = (o, lse) + tuple(vjp((jnp.asarray(to3[3]), jnp.asarray(dl3))))
+    ts = [torch.tensor(x, requires_grad=True) for x in to3[:3]]
+    to, tl = tflash.flash_attention_with_lse(*ts, causal=True, scale=0.25)
+    torch.autograd.backward([to, tl], [torch.tensor(to3[3]),
+                                       torch.tensor(dl3)])
+    for w, g in zip(want, (to, tl) + tuple(t.grad for t in ts)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(_np(g), _np(w), atol=ATOL["float32"])
+
+
+def test_plain_versions_agree_with_the_autograd_function():
+    """flash_fwd_plain / flash_bwd_plain are the functions the wrappers
+    run on the CPU; their backward equals autograd through the plain
+    forward (the gradient of o and of lse)."""
+    q, k, v, do, dlse = (torch.from_numpy(x) for x in
+                         _inputs(3, 2, 40, 70, 2, 8))
+    ts = [x.clone().requires_grad_() for x in (q, k, v)]
+    o, lse = tflash.flash_fwd_plain(*ts, causal=True, scale=0.3)
+    torch.autograd.backward([o, lse], [do, dlse])
+    o2, lse2 = tflash.flash_fwd_plain(q, k, v, causal=True, scale=0.3)
+    grads = tflash.flash_bwd_plain(q, k, v, o2, lse2, do, dlse, causal=True,
+                                   scale=0.3)
+    for want, got in zip((t.grad for t in ts), grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_versions_without_launching():
+    tflash.reset_launch_counts()
+    q, k, v, do, dlse = (torch.from_numpy(x) for x in
+                         _inputs(4, 1, 64, 64, 2, 16))
+    q.requires_grad_()
+    tflash.flash_attention(q, k, v).sum().backward()
+    assert tflash.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                      "flash_bwd_dkv": 0}
+
+
+def test_sparsity_config_names_its_roadmap_item():
+    q = torch.zeros(1, 8, 1, 16)
+    with pytest.raises(NotImplementedError, match="A10"):
+        tflash.flash_attention(q, q, q, sparsity_config=object())
+
+
+# ------------------------------------------------------------ on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU or "
+                    "interpret mode (CPU tensors take the plain versions, "
+                    "tested above)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,lq,lk,h,d,causal", [
+    (2, 200, 200, 3, 64, True), (1, 100, 300, 2, 64, True),
+    (1, 300, 100, 2, 32, True), (1, 129, 257, 2, 128, False),
+    (1, 512, 1024, 4, 128, True)])
+def test_kernels_match_plain_versions_on_the_card(cuda, b, lq, lk, h, d,
+                                                  causal, dtype):
+    tol = {"float32": 1e-4, "bfloat16": 3e-2}[dtype]
+    q, k, v, do, dlse = (torch.from_numpy(x).to(cuda) for x in
+                         _inputs(5, b, lq, lk, h, d))
+    q, k, v, do = (x.to(TORCH[dtype]) for x in (q, k, v, do))
+    tflash.reset_launch_counts()
+    o, lse = tflash.flash_fwd(q, k, v, causal=causal)
+    o2, lse2 = tflash.flash_fwd_plain(q, k, v, causal=causal)
+    got = tflash.flash_bwd(q, k, v, o2, lse2, do, dlse, causal=causal)
+    want = tflash.flash_bwd_plain(q, k, v, o2, lse2, do, dlse, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                      "flash_bwd_dkv": 1}
+    assert (o.float() - o2.float()).abs().max().item() < tol
+    live = lse2 > tflash.NEG_INF / 2
+    assert torch.equal(lse[~live], lse2[~live])
+    assert (lse[live] - lse2[live]).abs().max().item() < tol
+    for g, w in zip(got, want):
+        assert (g.float() - w.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+def test_autograd_on_strided_views_launches_the_kernels(cuda):
+    """GPT-2 splits a fused qkv projection: q/k/v are strided views that
+    the kernels read without a copy."""
+    qkv = torch.randn(2, 256, 3 * 4 * 64, device=cuda, requires_grad=True)
+    q, k, v = (t.view(2, 256, 4, 64) for t in qkv.split(256, dim=-1))
+    tflash.reset_launch_counts()
+    tflash.flash_attention(q, k, v).square().sum().backward()
+    g_kernel = qkv.grad.clone()
+    qkv.grad = None
+    o, _ = tflash.flash_fwd_plain(q, k, v)
+    o.square().sum().backward()
+    torch.cuda.synchronize()
+    assert tflash.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                      "flash_bwd_dkv": 1}
+    assert (g_kernel - qkv.grad).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,needle", [
+    (dict(d=48), "head_dim"), (dict(dtype=torch.float16), "dtype")])
+def test_kernel_refuses_what_it_does_not_take(cuda, kw, needle):
+    d, dtype = kw.get("d", 64), kw.get("dtype", torch.float32)
+    q = torch.zeros(1, 16, 2, d, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match=needle):
+        tflash.flash_fwd(q, q, q)

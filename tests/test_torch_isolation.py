@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models.gpt2 import GPT2, gpt2_tiny
 from deepspeed_tpu_torch.models.llama import Llama, llama_tiny
 from deepspeed_tpu_torch.ops import op_builder
 
@@ -44,7 +45,7 @@ def test_importing_every_module_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    assert int(r.stdout.split()[-1]) >= 34
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -79,6 +80,22 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     assert next(eng.module.parameters()).device.type == "cpu"
 
 
+def test_initialize_needs_cuda_or_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = {"train_micro_batch_size_per_gpu": 1}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=GPT2(gpt2_tiny()),
+                                       config=config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(model=GPT2(gpt2_tiny()),
+                                       config=config, device="cuda")
+    eng, opt, loader, sched = deepspeed_tpu_torch.initialize(
+        model=GPT2(gpt2_tiny()), config=config, device="cpu")
+    assert eng.device.type == "cpu" and loader is None and sched is None
+    assert opt is eng.optimizer
+    assert next(eng.module.parameters()).device.type == "cpu"
+
+
 def test_op_builder_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     builder = op_builder.DecodeAttentionBuilder()
@@ -88,3 +105,13 @@ def test_op_builder_refuses_without_a_card(monkeypatch):
         builder.load()
     with pytest.raises(op_builder.OpBuilderError, match="no CUDA device"):
         op_builder.build_all()
+
+
+def test_flash_builder_refuses_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    builder = op_builder.FlashAttentionBuilder()
+    assert os.path.exists(builder.source_path())
+    assert builder.so_path().startswith(os.path.join(REPO, "build"))
+    assert op_builder.ALL_OPS["flash_attention"].SOURCE == builder.SOURCE
+    with pytest.raises(op_builder.OpBuilderError, match="no CUDA device"):
+        builder.load()

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import deepspeed_tpu_torch
 from deepspeed_tpu.models import llama as jllama
 from deepspeed_tpu_torch.models import llama as tllama
 
@@ -155,3 +156,42 @@ def test_rmsnorm_matches_jax():
         norm.scale.copy_(torch.from_numpy(scale))
         got = norm(torch.from_numpy(x))
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-6)
+
+
+@torch.no_grad()
+def test_flash_no_cache_logits_match_jax_flash(models):
+    """attn_impl="flash" on both sides: the JAX Pallas kernel in
+    interpret mode, the port's flash path (its plain version on the
+    CPU)."""
+    _, params, tmodel = models
+    jflash = jllama.Llama(jllama.llama_tiny(attn_impl="flash"))
+    tflash = tllama.Llama(tllama.llama_tiny(attn_impl="flash"))
+    tflash.load_state_dict(tmodel.state_dict())
+    ids = np.random.default_rng(5).integers(0, 256, (2, 16)).astype(np.int32)
+    want = jflash.apply({"params": params}, jnp.asarray(ids))
+    got = tflash(torch.from_numpy(ids).long())
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL)
+
+
+@torch.no_grad()
+def test_kernel_inject_serves_a_fresh_auto_module(models):
+    """``kernel_inject=True`` (``replace_with_kernel_inject``): the engine
+    serves a fresh module with ``attn_impl="auto"`` and the caller's
+    weights; the caller's module keeps its config, dtype and values."""
+    jmodel, params, tmodel = models
+    model = tllama.Llama(tllama.llama_tiny(attn_impl="reference"))
+    model.load_state_dict(tmodel.state_dict())
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    engines = [deepspeed_tpu_torch.init_inference(
+        model, dtype=dtype, device="cpu", kernel_inject=True)
+        for dtype in ("bfloat16", "float32")]
+    for eng in engines:
+        assert eng.module is not model
+        assert eng.module.cfg.attn_impl == "auto"
+    assert model.cfg.attn_impl == "reference"
+    for k, v in model.state_dict().items():
+        assert v.dtype == torch.float32 and torch.equal(v, before[k]), k
+    ids = np.random.default_rng(6).integers(0, 256, (2, 13)).astype(np.int32)
+    want = jmodel.apply({"params": params}, jnp.asarray(ids))
+    np.testing.assert_allclose(_np(engines[1].forward(ids)), np.asarray(want),
+                               atol=ATOL)
