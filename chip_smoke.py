@@ -15,7 +15,17 @@ Phases, each of which must pass (any failure exits nonzero):
      version on the card, fp32 and bf16, at the serving path's shapes
      (Llama-2-7B heads, a 128-bucketed dense cache, and GQA at
      Llama-2-70B head widths), with its time, the plain version's,
-     SDPA's over the same (gathered) K/V, and the bandwidth bound;
+     SDPA's over the same (gathered) K/V, and the bandwidth bound; the
+     paged shapes again over int8 and fp8 pools (paged_decode_quant_fwd;
+     SDPA then runs on the gathered, dequantized buffers);
+  3b. int8_matmul kernel phase: int8_matmul_fwd against its plain
+     version at the Llama-2-7B projection shapes, m = 4 (decode), 64
+     (prefill chunk) and 1, group 64, bf16 and fp32, with its time, the
+     plain version's, the bound, and F.linear on the FLOAT weight of the
+     same shape (the layer this one replaces; no single PyTorch call
+     computes the quantized function); fp32 batch invariance: a row of
+     an m = 1 or m = 4 call equals that row of an m = 64 call bit for
+     bit;
   4. flash kernel phase: flash_fwd and the flash_bwd_dq / flash_bwd_dkv
      pair against their plain versions (o, lse, dq, dk, dv), fp32 and
      bf16, at (a) GPT-2 small training, b 8 h 12 l 1024 d 64 causal,
@@ -30,6 +40,26 @@ Phases, each of which must pass (any failure exits nonzero):
   6. serve phase, bf16: the same requests; tokens/s, TTFT and step times
      are printed, agreement with fp32 is printed, not asserted (the
      step-time breakdown is deepspeed_tpu_torch/profiling/decode_profile.py);
+  6b. serve phase, the main quantized configuration: dtype="int8"
+     (int8 weights, group 64, bf16 compute) with kv_cache_dtype="int8",
+     the same requests, the resident module quantized in place; tokens/s,
+     step and first-token times; two runs must give identical tokens;
+     summary()'s kv_pool_bytes_total must equal the leaves' bytes and
+     (num_pages + 1) x kv_page_bytes; on the live pools after the run
+     the quantized paged kernel must equal its plain version; agreement
+     with generate() and the fp32 run is printed, not asserted (random
+     weights make near-ties common); one 200-token sequence is
+     teacher-forced through chunked prefill into float32 pools and into
+     int8 pools and the largest boundary-logit difference is held under
+     KV_LOGIT_DELTA_CEILING; then two requests over fp8 pools
+     (ServingScheduler(kv_dtype="fp8"));
+  6c. serve phase, int8 weights with fp32 compute and float32 KV
+     (dtype="float32", quant enabled; weights drawn again from the
+     seed): every request's tokens must equal its own generate() tokens;
+  6d. serve phase, grouped heads: Llama-2-70B widths (64 heads over 8 kv
+     heads) at 2 layers, bf16, a few short requests over bfloat16 and
+     over int8 pools, so both paged kernels launch at group 8 on a
+     serving path;
   7. train phase, fp32 oracle: GPT-2 small width at 2 layers, batch 2 x
      1024, one step through the flash kernels and one through the plain
      reference attention from the same weights; the loss, the global
@@ -41,7 +71,9 @@ Phases, each of which must pass (any failure exits nonzero):
      MFU are printed (the step breakdown is
      deepspeed_tpu_torch/profiling/train_profile.py);
   9. the launch count of every kernel over its path (decode kernels over
-     phases 5-6, flash kernels over phase 8; each must be > 0).
+     phases 5-6, the quantized paged kernel and int8_matmul_fwd over
+     phases 6b-6c, the grouped instantiations over 6d, flash kernels
+     over phase 8; each must be > 0).
 
 Each line of output is one JSON object; the last is
 {"ok": true, "device": {...}}.  TF32 is off for matmuls and cuDNN so
@@ -60,6 +92,15 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # dense tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# largest |logit(float32 pools) - logit(int8 pools)| over the boundary
+# rows of a teacher-forced 200-token prefill, bf16 compute over int8
+# weights, seeded random Llama-2-7B weights: the first measurement on the
+# card read 0.618 at a largest |logit| of 6.03 (PERF.md; random weights
+# amplify a perturbation through 32 layers, and the float32-pool run also
+# attends in float32 where the int8-pool run attends in bf16).  The
+# ceiling is 2.4 times that: a row scaled wrongly moves logits by their
+# whole magnitude.
+KV_LOGIT_DELTA_CEILING = 1.5
 
 
 def emit(obj):
@@ -131,10 +172,14 @@ def ptxas_usage(logs):
 
 
 def paged_case(torch, dec, name, h, kv_h, d, ps, positions, dtype,
-               rotations, seed):
+               rotations, seed, kv_name=None):
     """One paged-decode shape: check the kernel against the plain version
-    and time kernel / plain / SDPA over ``rotations`` copies of the pool."""
+    and time kernel / plain / SDPA over ``rotations`` copies of the pool.
+    ``kv_name`` ("int8" / "fp8") quantizes the pools per row, which sends
+    the call to ``paged_decode_quant_fwd``."""
     import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.quant import kv as kvq
     dev = torch.device("cuda")
     slots = len(positions)
     maxp = (max(positions) // ps) + 1
@@ -150,38 +195,50 @@ def paged_case(torch, dec, name, h, kv_h, d, ps, positions, dtype,
                          device=dev).to(dtype)
         pt = torch.randperm(num_pages, generator=g, device=dev)[
             :slots * maxp].reshape(slots, maxp).to(torch.int32)
-        sets.append((q, kp, vp, pt))
-    q, kp, vp, pt = sets[0]
-    got = dec.paged_decode_attention(q, kp, vp, pt, pos)
-    want = dec.paged_decode_attention_plain(q, kp, vp, pt, pos)
+        scales = {}
+        if kv_name is not None:
+            kp, scales["k_scale"] = kvq.quantize_kv_rows(kp, kv_name)
+            vp, scales["v_scale"] = kvq.quantize_kv_rows(vp, kv_name)
+        sets.append((q, kp, vp, pt, scales))
+    q, kp, vp, pt, scales = sets[0]
+    got = dec.paged_decode_attention(q, kp, vp, pt, pos, **scales)
+    want = dec.paged_decode_attention_plain(q, kp, vp, pt, pos, **scales)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     dtype_name = str(dtype).replace("torch.", "")
     if not err < TOL[dtype_name]:
         fail(f"{name}: kernel vs plain max abs err {err} >= "
              f"{TOL[dtype_name]}")
-    # SDPA over the pages gathered to contiguous buffers (gather untimed)
+    # SDPA over the pages gathered to contiguous buffers, dequantized
+    # where the pool is quantized (gather and dequantize untimed)
     lib_sets = []
-    for q_, kp_, vp_, pt_ in sets:
-        kf = dec.gather_pages(kp_, pt_.long())
-        vf = dec.gather_pages(vp_, pt_.long())
+    for q_, kp_, vp_, pt_, sc_ in sets:
+        kf, vf = kvq.paged_gather(dict(k_pages=kp_, v_pages=vp_, **sc_),
+                                  pt_.long(), dtype)
         mask = (torch.arange(kf.shape[1], device=dev)[None, :] <=
                 pos.long()[:, None])[:, None, None, :]
         lib_sets.append((*sdpa_inputs(q_, kf, vf), mask))
-    ms = time_ms(torch, [lambda s=s: dec.paged_decode_attention(*s, pos)
-                         for s in sets])
+    ms = time_ms(torch, [
+        lambda s=s: dec.paged_decode_attention(*s[:4], pos, **s[4])
+        for s in sets])
     plain_ms = time_ms(torch, [
-        lambda s=s: dec.paged_decode_attention_plain(*s, pos) for s in sets])
+        lambda s=s: dec.paged_decode_attention_plain(*s[:4], pos, **s[4])
+        for s in sets])
     library_ms = time_ms(torch, [
         lambda a=a: F.scaled_dot_product_attention(
             a[0], a[1], a[2], attn_mask=a[3], enable_gqa=kv_h != h)
         for a in lib_sets])
     item = q.element_size()
     live = sum(p + 1 for p in positions)
-    n_bytes = 2 * live * kv_h * d * item + 2 * q.numel() * item + \
+    # a live row costs its payload, plus one f32 scale when quantized
+    row_bytes = d * kp.element_size() + (4 if kv_name else 0)
+    n_bytes = 2 * live * kv_h * row_bytes + 2 * q.numel() * item + \
         pt.numel() * 4 + slots * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * live * h * d, dtype_name)
-    out = {"phase": "kernel", "kernel": "paged_decode_fwd", "case": name,
+    out = {"phase": "kernel",
+           "kernel": "paged_decode_quant_fwd" if kv_name else
+           "paged_decode_fwd", "kv_dtype": kv_name or dtype_name,
+           "case": name,
            "dtype": dtype_name, "slots": slots, "heads": h, "kv_heads": kv_h,
            "head_dim": d, "page_size": ps, "positions": list(positions),
            "max_abs_err": err, "tol": TOL[dtype_name], "kernel_ms": ms,
@@ -189,6 +246,83 @@ def paged_case(torch, dec, name, h, kv_h, d, ps, positions, dtype,
            "bound_by": b_by, "bytes": n_bytes}
     emit(out)
     return out
+
+
+def rel_err(got, want):
+    """max |got - want| / max(1, |want|): absolute below magnitude 1,
+    relative above it (one bf16 rounding of an output of magnitude 4 is
+    already 0.03 absolute)."""
+    want = want.float()
+    return ((got.float() - want).abs() / want.abs().clamp(min=1.0)) \
+        .max().item()
+
+
+def int8_matmul_case(torch, kern, tq, m, k, n, group, dtype, rotations,
+                     seed):
+    """One int8_matmul shape: kernel against plain (by :func:`rel_err`)
+    and kernel / plain / float-layer times over ``rotations`` weights."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dtype_name = str(dtype).replace("torch.", "")
+    sets = []
+    for _ in range(rotations):
+        x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+        w = torch.randn(k, n, generator=g, device=dev) * 0.02
+        q, scale = tq.quantize(w.to(dtype), group_size=group)
+        # the float layer this one replaces: nn.Linear's [out, in] weight
+        sets.append((x, q, scale, w.t().contiguous().to(dtype)))
+        del w
+    x, q, scale, _ = sets[0]
+    got = kern.int8_matmul(x, q, scale)
+    want = kern.int8_matmul_plain(x, q, scale)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    abs_err = (got.float() - want.float()).abs().max().item()
+    label = f"int8_matmul m{m} k{k} n{n} {dtype_name}"
+    if not err < TOL[dtype_name]:
+        fail(f"{label}: kernel vs plain error {err} >= {TOL[dtype_name]}")
+    ms = time_ms(torch, [lambda s=s: kern.int8_matmul(*s[:3]) for s in sets])
+    plain_ms = time_ms(torch, [lambda s=s: kern.int8_matmul_plain(*s[:3])
+                               for s in sets])
+    float_ms = time_ms(torch, [lambda s=s: F.linear(s[0], s[3])
+                               for s in sets])
+    item = x.element_size()
+    n_bytes = k * n + 4 * (k // group) * n + (m * k + m * n) * item
+    b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n, dtype_name)
+    out = {"phase": "int8_matmul_kernel", "kernel": "int8_matmul_fwd",
+           "dtype": dtype_name, "m": m, "k": k, "n": n, "group": group,
+           "max_rel_err": err, "max_abs_err": abs_err,
+           "tol": TOL[dtype_name], "kernel_ms": ms, "plain_ms": plain_ms,
+           "float_linear_ms": float_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": n_bytes,
+           "share_of_memory_rate": n_bytes / HBM_BYTES_PER_S * 1e3 / ms}
+    emit(out)
+    return out
+
+
+def batch_invariance(torch, kern, tq, seed):
+    """fp32: row i of an m-row call must equal, bit for bit, the same row
+    computed alone (m = 1), in a decode-sized batch (m = 4) and in a
+    second run — the scheduler (m = slots or chunk) and generate() (m = 1
+    or prompt length) must see one arithmetic."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(64, 4096, generator=g, device=dev)
+    q, scale = tq.quantize(
+        torch.randn(4096, 4096, generator=g, device=dev) * 0.02,
+        group_size=64)
+    full = kern.int8_matmul(x, q, scale)
+    checks = {"rerun": torch.equal(full, kern.int8_matmul(x, q, scale))}
+    for rows in ((0, 1), (0, 4), (37, 38), (13, 20)):
+        part = kern.int8_matmul(x[rows[0]:rows[1]].contiguous(), q, scale)
+        checks[f"rows {rows[0]}:{rows[1]}"] = torch.equal(
+            part, full[rows[0]:rows[1]])
+    torch.cuda.synchronize()
+    emit({"phase": "int8_matmul_batch_invariance", "dtype": "float32",
+          "k": 4096, "n": 4096, "bitwise_equal": checks})
+    if not all(checks.values()):
+        fail(f"int8_matmul is not batch invariant in fp32: {checks}")
 
 
 def dense_case(torch, dec, name, b, h, kv_h, d, max_len, positions, dtype,
@@ -501,6 +635,269 @@ def serve(torch, engine, prompts, max_new, sched_kwargs):
     return [got[r.rid] for r in reqs], sched, wall
 
 
+def agreement(got, want):
+    """Per request, the share of positions with the same token."""
+    return [sum(1 for a, b in zip(x, y) if a == b) / len(y)
+            for x, y in zip(got, want)]
+
+
+def live_pool_check(torch, dec, sched, dtype, heads, label, seed,
+                    positions=(0, 7, 100, 231)):
+    """On the pools a serving run has just written (layer 0): one paged
+    decode call of the kernel against its plain version (by
+    :func:`rel_err`), through a page table over the pool's first pages.
+    Callers read the run's launch counts before this comparison."""
+    layer = sched.pools["layers"][0]
+    ps = layer["k_pages"].shape[1]
+    maxp = max(positions) // ps + 1
+    if len(positions) * maxp > sched.kv.pool.num_pages:
+        fail(f"{label}: positions {positions} need more pages than the pool")
+    dev = layer["k_pages"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(len(positions), 1, heads, layer["k_pages"].shape[3],
+                    generator=g, device=dev).to(dtype)
+    pt = torch.arange(len(positions) * maxp, device=dev,
+                      dtype=torch.int32).reshape(len(positions), maxp)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    scales = {k: layer[k] for k in ("k_scale", "v_scale") if k in layer}
+    got = dec.paged_decode_attention(q, layer["k_pages"], layer["v_pages"],
+                                     pt, pos, **scales)
+    want = dec.paged_decode_attention_plain(
+        q, layer["k_pages"], layer["v_pages"], pt, pos, **scales)
+    torch.cuda.synchronize()
+    # a served model's values are not unit-scale: one bf16 rounding of an
+    # output of magnitude 4 is 0.03 absolute, so the error is relative
+    # above magnitude 1 (rel_err)
+    err = rel_err(got, want)
+    dtype_name = str(dtype).replace("torch.", "")
+    written = float(layer["k_pages"][:len(positions) * maxp].float().abs()
+                    .max())
+    if not err < TOL[dtype_name] or not written > 0:
+        fail(f"{label}: kernel vs plain on the live pools: error {err} "
+             f"(tolerance {TOL[dtype_name]}), max |payload| {written}")
+    return err
+
+
+def teacher_forced_delta(engine, seq, sched_kwargs):
+    """The same token stream teacher-forced through chunked prefill into
+    float32 pools and into int8 pools: the largest difference of any
+    boundary logit (the oracle of the JAX package's
+    test_int8_teacher_forced_logit_delta_pinned), and the share of
+    chunks whose argmax agrees."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.serving import PagedKVManager
+    chunk, ps = sched_kwargs["prefill_chunk"], sched_kwargs["page_size"]
+    runs = {}
+    for kvd in ("float32", "int8"):
+        pools = engine.init_paged_cache(sched_kwargs["num_pages"], ps,
+                                        kv_dtype=kvd)
+        kvm = PagedKVManager(sched_kwargs["num_pages"], ps,
+                             sched_kwargs["num_slots"],
+                             sched_kwargs["max_pages_per_slot"])
+        if not kvm.ensure_capacity(0, len(seq)):
+            fail("teacher-forced run: the pool cannot hold the sequence")
+        lengths = np.zeros(sched_kwargs["num_slots"], np.int32)
+        rows = []
+        for c0 in range(0, len(seq), chunk):
+            n = min(chunk, len(seq) - c0)
+            ids = np.zeros((1, chunk), np.int32)
+            ids[0, :n] = seq[c0:c0 + n]
+            logits, pools = engine.prefill_into_slots(
+                ids, 0, n, kvm.table, lengths, pools)
+            lengths[0] += n
+            rows.append(logits.float())
+        runs[kvd] = rows
+    deltas = [(a - b).abs().max().item()
+              for a, b in zip(runs["float32"], runs["int8"])]
+    same = [int(a.argmax()) == int(b.argmax())
+            for a, b in zip(runs["float32"], runs["int8"])]
+    logit_scale = max(a.abs().max().item() for a in runs["float32"])
+    return deltas, sum(same) / len(same), logit_scale
+
+
+def serve_quantized(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
+                    sched_kwargs, got32, seed):
+    """Phase 6b: dtype="int8" + kv_cache_dtype="int8" on the resident
+    (bf16) module, quantized in place; then fp8 pools on the same
+    engine.  Returns (tokens, launch counts of the phase)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.quant import kernels as qk
+    dec.reset_launch_counts()
+    qk.reset_launch_counts()
+    t0 = time.monotonic()
+    engine = deepspeed_tpu_torch.init_inference(
+        model, dtype="int8", kv_cache_dtype="int8", max_out_tokens=512)
+    torch.cuda.synchronize()
+    quantize_s = time.monotonic() - t0
+    serve(torch, engine, [prompts[0]], [4], sched_kwargs)     # warm-up
+    got, sched, wall = serve(torch, engine, prompts, max_new, sched_kwargs)
+    again, _, _ = serve(torch, engine, prompts, max_new, sched_kwargs)
+    s = sched.summary()
+    leaves = sum(t.numel() * t.element_size()
+                 for layer in sched.pools["layers"] for t in layer.values())
+    page_bytes = engine.kv_page_bytes(sched_kwargs["page_size"])
+    want = [[int(t) for t in engine.generate(p[None], max_new_tokens=m)[
+        0, len(p):]] for p, m in zip(prompts, max_new)]
+    counts = {**dec.launch_counts(), **qk.launch_counts()}
+    live_err = live_pool_check(torch, dec, sched, torch.bfloat16,
+                               model.cfg.num_heads, "int8 KV", seed + 7)
+    seq = np.random.default_rng(seed + 8).integers(
+        0, model.cfg.vocab_size, 200).astype(np.int32)
+    deltas, argmax_agree, logit_scale = teacher_forced_delta(
+        engine, seq, sched_kwargs)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters()) + \
+        sum(b.numel() * b.element_size() for b in model.buffers())
+    emit({"phase": "serve_int8_weights_int8_kv", "compute": "bfloat16",
+          "group_size": engine._config.quant.group_size,
+          "quantize_s": round(quantize_s, 3), "serve_s": round(wall, 3),
+          "tokens": s["tokens_emitted"],
+          "tokens_per_s": s["tokens_emitted"] / wall, "steps": s["steps"],
+          "ms_per_step": wall * 1e3 / s["steps"],
+          "ttft_ms_p50": s["ttft_ms_p50"], "ttft_ms_p90": s["ttft_ms_p90"],
+          "tpot_ms_p50": s["tpot_ms_p50"], "tbt_ms_p50": s["tbt_ms_p50"],
+          "preemptions": s["preemptions"],
+          "weight_dtype": s["weight_dtype"], "kv_dtype": s["kv_dtype"],
+          "kv_pool_bytes_total": s["kv_pool_bytes_total"],
+          "kv_page_bytes": page_bytes, "weight_bytes": weight_bytes,
+          "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+          "paged_attention": s["paged_attention"],
+          "two_runs_identical": got == again,
+          "agreement_with_generate": agreement(got, want),
+          "agreement_with_fp32": agreement(got, got32),
+          "live_pool_kernel_vs_plain_err": live_err,
+          "teacher_forced_logit_delta_max": max(deltas),
+          "teacher_forced_logit_deltas": deltas,
+          "teacher_forced_argmax_agreement": argmax_agree,
+          "teacher_forced_logit_scale": logit_scale,
+          "logit_delta_ceiling": KV_LOGIT_DELTA_CEILING,
+          "launches": counts})
+    if (s["weight_dtype"], s["kv_dtype"]) != ("int8", "int8") or \
+            s["paged_attention"]["path"] != "kernel":
+        fail(f"quantized serve ran as {s['weight_dtype']} weights, "
+             f"{s['kv_dtype']} KV, {s['paged_attention']}")
+    if not (s["kv_pool_bytes_total"] == leaves ==
+            (sched_kwargs["num_pages"] + 1) * page_bytes):
+        fail(f"kv_pool_bytes_total {s['kv_pool_bytes_total']} != leaves "
+             f"{leaves} or (pages + 1) x kv_page_bytes {page_bytes}")
+    if got != again:
+        fail("two int8 serving runs gave different tokens")
+    if not max(deltas) < KV_LOGIT_DELTA_CEILING:
+        fail(f"teacher-forced int8-KV logit delta {max(deltas)} >= "
+             f"{KV_LOGIT_DELTA_CEILING}")
+
+    # fp8 pools on the same engine, two requests
+    dec.reset_launch_counts()
+    qk.reset_launch_counts()
+    fp8_kwargs = dict(sched_kwargs, kv_dtype="fp8")
+    got8, sched8, wall8 = serve(torch, engine, prompts[:2], max_new[:2],
+                                fp8_kwargs)
+    again8, _, _ = serve(torch, engine, prompts[:2], max_new[:2], fp8_kwargs)
+    fp8_counts = {**dec.launch_counts(), **qk.launch_counts()}
+    err8 = live_pool_check(torch, dec, sched8, torch.bfloat16,
+                           model.cfg.num_heads, "fp8 KV", seed + 9)
+    s8 = sched8.summary()
+    emit({"phase": "serve_int8_weights_fp8_kv", "serve_s": round(wall8, 3),
+          "tokens": s8["tokens_emitted"],
+          "tokens_per_s": s8["tokens_emitted"] / wall8,
+          "kv_dtype": s8["kv_dtype"],
+          "kv_pool_bytes_total": s8["kv_pool_bytes_total"],
+          "two_runs_identical": got8 == again8,
+          "agreement_with_int8_kv": agreement(got8, got[:2]),
+          "live_pool_kernel_vs_plain_err": err8,
+          "launches": fp8_counts})
+    if s8["kv_dtype"] != "fp8" or got8 != again8 or \
+            fp8_counts["paged_decode_quant_fwd"] <= 0:
+        fail(f"fp8 KV serve: kv_dtype {s8['kv_dtype']}, identical "
+             f"{got8 == again8}, launches {fp8_counts}")
+    for name in counts:
+        counts[name] += fp8_counts[name]
+    return got, counts
+
+
+def serve_int8_fp32(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
+                    sched_kwargs, seed):
+    """Phase 6c: int8 weights, fp32 compute, float32 KV — the oracle
+    mode.  The weights are drawn again from the seed in fp32, then
+    quantized; serving must equal generate() token for token."""
+    from deepspeed_tpu_torch.ops.quant import kernels as qk
+    dec.reset_launch_counts()
+    qk.reset_launch_counts()
+    engine = deepspeed_tpu_torch.init_inference(
+        model, dtype="float32", quant={"enabled": True},
+        kv_cache_dtype="float32", max_out_tokens=512)
+    engine.init_params(seed)
+    t0 = time.monotonic()
+    want = [[int(t) for t in engine.generate(p[None], max_new_tokens=m)[
+        0, len(p):]] for p, m in zip(prompts, max_new)]
+    gen_s = time.monotonic() - t0
+    got, sched, wall = serve(torch, engine, prompts, max_new, sched_kwargs)
+    counts = {**dec.launch_counts(), **qk.launch_counts()}
+    exact = [g == w for g, w in zip(got, want)]
+    s = sched.summary()
+    emit({"phase": "serve_int8_weights_fp32", "compute": "float32",
+          "kv_dtype": s["kv_dtype"], "weight_dtype": s["weight_dtype"],
+          "generate_s": round(gen_s, 3), "serve_s": round(wall, 3),
+          "tokens_per_s": s["tokens_emitted"] / wall,
+          "preemptions": s["preemptions"],
+          "token_exact_vs_generate": exact, "launches": counts})
+    if not all(exact):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                emit({"mismatch": i, "serve": g, "generate": w})
+        fail("int8-weight fp32 serving is not token-exact against "
+             "generate()")
+    return got, counts
+
+
+def serve_grouped(torch, deepspeed_tpu_torch, dec, seed):
+    """Phase 6d: Llama-2-70B widths (64 query heads over 8 kv heads) at 2
+    layers, bf16: a few short requests over bfloat16 pools and over int8
+    pools, so paged_decode_fwd and paged_decode_quant_fwd launch at group
+    8 on a serving path.  Returns the launch counts of the two runs."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models.llama import Llama, llama2_70b
+    cfg = llama2_70b(num_layers=2)
+    engine = deepspeed_tpu_torch.init_inference(
+        Llama(cfg, device="cuda"), dtype="bfloat16",
+        kv_cache_dtype="bfloat16", max_out_tokens=256).init_params(seed)
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 70, 33)]
+    max_new = [12, 8, 10]
+    sched_kwargs = dict(num_slots=2, num_pages=32, page_size=16,
+                        max_pages_per_slot=8, prefill_chunk=32,
+                        decode_horizon_steps=4)
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        dec.reset_launch_counts()
+        got, sched, wall = serve(torch, engine, prompts, max_new,
+                                 dict(sched_kwargs, kv_dtype=kv))
+        counts = dec.launch_counts()
+        s = sched.summary()
+        err = live_pool_check(torch, dec, sched, torch.bfloat16,
+                              cfg.num_heads, f"grouped {kv} KV", seed + 11,
+                              positions=(0, 7, 60, 100))
+        emit({"phase": "serve_grouped", "model": "llama2-70b widths",
+              "layers": 2, "heads": cfg.num_heads,
+              "kv_heads": cfg.num_kv_heads, "kv_dtype": s["kv_dtype"],
+              "requests": len(prompts), "tokens": s["tokens_emitted"],
+              "serve_s": round(wall, 3),
+              "paged_attention": s["paged_attention"],
+              "live_pool_kernel_vs_plain_err": err,
+              "launches": counts})
+        if s["kv_dtype"] != kv or \
+                [len(g) for g in got] != max_new:
+            fail(f"grouped serve over {kv} pools: kv_dtype {s['kv_dtype']}, "
+                 f"{[len(g) for g in got]} tokens")
+        out[kv] = counts
+    return out["bfloat16"]["paged_decode_fwd"], \
+        out["int8"]["paged_decode_quant_fwd"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -519,6 +916,8 @@ def main():
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.attention import decode as dec
     from deepspeed_tpu_torch.ops.attention import flash as fl
+    from deepspeed_tpu_torch.ops.quant import kernels as qk
+    from deepspeed_tpu_torch.ops.quant import quantizer as tq
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -555,6 +954,29 @@ def main():
         dense_case(torch, dec, "llama2-7b batch 8 x 1024", 8, 32, 32, 128,
                    1024, [1023 - 100 * i for i in range(8)], dtype,
                    rotations=2, seed=5)
+        for kv_name in ("int8", "fp8"):
+            results[("paged_quant", kv_name, dn)] = paged_case(
+                torch, dec, "llama2-7b serve batch", 32, 32, 128, 16,
+                serve_pos, dtype, rotations=8, seed=1, kv_name=kv_name)
+            results[("paged_quant_gqa", kv_name, dn)] = paged_case(
+                torch, dec, "llama2-70b heads (GQA 64/8)", 64, 8, 128, 16,
+                serve_pos, dtype, rotations=8, seed=2, kv_name=kv_name)
+            paged_case(torch, dec, "llama2-7b 32 slots x 1024", 32, 32, 128,
+                       16, [1023 - 29 * i for i in range(32)], dtype,
+                       rotations=2, seed=3, kv_name=kv_name)
+    torch.cuda.empty_cache()
+
+    # ---- int8_matmul kernel phase: the Llama-2-7B projections
+    batch_invariance(torch, qk, tq, seed=6)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
+                     (4096, 32000)):
+            for m in (4, 64, 1):
+                results[("int8_matmul", dn, m, k, n)] = int8_matmul_case(
+                    torch, qk, tq, m, k, n, 64, dtype, rotations=4,
+                    seed=7 + m)
+            torch.cuda.empty_cache()
 
     # ---- flash kernel phase: the training path's shapes
     flash_results = {}
@@ -619,8 +1041,7 @@ def main():
     got16, sched16, wall16 = serve(torch, engine, prompts, max_new,
                                    sched_kwargs)
     s = sched16.summary()
-    agree = [sum(1 for a, b in zip(x, y) if a == b) / len(y)
-             for x, y in zip(got16, got32)]
+    agree = agreement(got16, got32)
     emit({"phase": "serve_bf16", "serve_s": round(wall16, 3),
           "tokens": s["tokens_emitted"],
           "tokens_per_s": s["tokens_emitted"] / wall16,
@@ -630,7 +1051,23 @@ def main():
           "preemptions": s["preemptions"],
           "agreement_with_fp32": agree})
     counts = dec.launch_counts()
-    del model, engine, sched32, sched16, logits
+    del engine, sched32, sched16, logits
+    torch.cuda.empty_cache()
+
+    # ---- quantized serve phases (6b-6d), each with its own counts
+    got_q, q_counts = serve_quantized(
+        torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
+        sched_kwargs, got32, args.seed)
+    got_q32, q32_counts = serve_int8_fp32(
+        torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
+        sched_kwargs, args.seed)
+    emit({"phase": "quantized_agreement",
+          "int8_fp32_vs_float_fp32": agreement(got_q32, got32),
+          "int8_bf16_int8kv_vs_int8_fp32": agreement(got_q, got_q32)})
+    del model
+    torch.cuda.empty_cache()
+    grouped_float, grouped_quant = serve_grouped(
+        torch, deepspeed_tpu_torch, dec, args.seed)
     torch.cuda.empty_cache()
 
     # ---- train phases: the fp32 oracle, then the bf16 main path
@@ -656,6 +1093,42 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kernels[0]["also_replaces"] = "deepspeed_tpu/ops/attention/decode.py:411"
+    kernels[0]["launches_group_8_serve"] = grouped_float
+    # the quantized paged kernel: group 1 over the 7B quantized serve
+    # phases, group 8 over the grouped serve; int8 pools, bf16 compute
+    source = "deepspeed_tpu_torch/ops/attention/csrc/decode_attention.cu"
+    for key, label, launches, replaces in (
+            ("paged_quant", "paged_decode_quant_fwd",
+             q_counts["paged_decode_quant_fwd"],
+             "deepspeed_tpu/ops/attention/decode.py:471 (quantized body "
+             ":171)"),
+            ("paged_quant_gqa", "paged_decode_quant_fwd (group 8)",
+             grouped_quant,
+             "deepspeed_tpu/ops/attention/decode.py:411 (quantized=True)")):
+        r = results[(key, "int8", "bfloat16")]
+        r8 = results[(key, "fp8", "bfloat16")]
+        kernels.append({
+            "name": label, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"], r8["max_abs_err"]),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "fp8_ms": r8["kernel_ms"]})
+    # int8_matmul_fwd at the decode shape of the 7B serve phase (m = 4
+    # slots, k = n = 4096, bf16); no single PyTorch call computes the
+    # quantized function, so library_ms is null and the float layer's
+    # F.linear time stands beside it
+    r = results[("int8_matmul", "bfloat16", 4, 4096, 4096)]
+    kernels.append({
+        "name": "int8_matmul_fwd", "route": "cuda",
+        "source": "deepspeed_tpu_torch/ops/quant/csrc/int8_matmul.cu",
+        "replaces": "deepspeed_tpu/ops/quant/kernels.py:122",
+        "launches": q_counts["int8_matmul_fwd"] +
+        q32_counts["int8_matmul_fwd"],
+        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "float_linear_ms": r["float_linear_ms"]})
     # the flash kernels at shape (a), bf16: the train phase's shape; the
     # plain and SDPA times of the backward cover the pair (dq, dk, dv)
     r = flash_results[("a", "bfloat16")]
@@ -686,6 +1159,8 @@ def main():
             kernels[-1]["plain_and_library_cover"] = "dq, dk and dv"
     emit({"kernels": kernels})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if grouped_float <= 0:
+        missing.append("paged_decode_fwd (group 8)")
     if missing:
         fail(f"kernels never launched on the serve and train paths: "
              f"{missing}")

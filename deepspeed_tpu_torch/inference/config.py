@@ -1,9 +1,14 @@
 """Inference config (counterpart of ``deepspeed_tpu/inference/config.py``).
 
 The same pydantic surface for the fields this port runs — ``dtype``,
-``kv_cache_dtype``, ``max_out_tokens``, ``paged_kernel``,
+``quant``, ``kv_cache_dtype``, ``max_out_tokens``, ``paged_kernel``,
 ``replace_with_kernel_inject`` and ``tensor_parallel`` (tp_size 1) —
-plus ``device``.  A field the JAX
+plus ``device``.  The two quantization knobs are independent, as in the
+JAX config (``inference/config.py:86-107``): ``dtype="int8"`` means int8
+WEIGHTS with bfloat16 compute (it sets ``quant.enabled``);
+``quant={"enabled": True}`` beside a float ``dtype`` keeps that compute
+dtype; ``kv_cache_dtype="int8"|"fp8"`` quantizes the paged KV pools and
+is not weight quantization.  A field the JAX
 package accepts but the port does not run yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item; any other
 unknown field raises ``ValueError``.  Nothing is accepted and ignored.
@@ -13,9 +18,10 @@ from typing import Any, Optional
 
 from pydantic import BaseModel, ConfigDict, Field
 
+from deepspeed_tpu_torch.ops.quant.kv import KV_QUANT_DTYPES
+
 # JAX-package config fields the port does not run yet -> ROADMAP.md item
 UNPORTED_FIELDS = {
-    "quant": "Queue A2 (weight-only int8 serving, kernel B7)",
     "enable_cuda_graph": "Queue A5 (overlap and CUDA-graph horizons)",
     "mesh": "Queue A10 (multi-GPU serving)",
     "mesh_dcn": "Queue A10 (multi-GPU serving)",
@@ -27,12 +33,21 @@ UNPORTED_FIELDS = {
 
 _DTYPE_ALIASES = {"half": "float16", "fp16": "float16", "bf16": "bfloat16",
                   "float": "float32", "fp32": "float32"}
+_KV_ALIASES = dict(_DTYPE_ALIASES, float8="fp8", float8_e4m3fn="fp8")
 FLOAT_DTYPES = ("float32", "bfloat16", "float16")
 
 
 class DeepSpeedTPConfig(BaseModel):
     model_config = ConfigDict(extra="forbid")
     tp_size: int = 1
+
+
+class QuantizationConfig(BaseModel):
+    """Weight-only group quantization (``ops/quant/quantizer.py``)."""
+    model_config = ConfigDict(extra="forbid")
+    enabled: bool = False
+    num_bits: int = 8
+    group_size: int = 64
 
 
 def _unported(what, item):
@@ -44,6 +59,7 @@ class DeepSpeedInferenceConfig(BaseModel):
     model_config = ConfigDict(extra="allow", populate_by_name=True)
 
     dtype: str = "bfloat16"
+    quant: QuantizationConfig = Field(default_factory=QuantizationConfig)
     kv_cache_dtype: str = "bfloat16"
     max_out_tokens: int = Field(1024, alias="max_tokens")
     tensor_parallel: DeepSpeedTPConfig = Field(
@@ -70,18 +86,25 @@ class DeepSpeedInferenceConfig(BaseModel):
             raise _unported(f"tensor_parallel.tp_size="
                             f"{self.tensor_parallel.tp_size}",
                             UNPORTED_FIELDS["mesh"])
-        for field, item in (("dtype", "Queue A2 (weight-only int8 serving,"
-                             " kernel B7)"),
-                            ("kv_cache_dtype", "Queue A1 (quantized paged "
-                             "KV, kernel B6)")):
-            name = str(getattr(self, field)).lower().replace("torch.", "")
-            name = _DTYPE_ALIASES.get(name, name)
-            if name in ("int8", "fp8", "float8", "float8_e4m3fn"):
-                raise _unported(f"{field}={name!r}", item)
-            if name not in FLOAT_DTYPES:
-                raise ValueError(f"unsupported {field} {name!r}; pick one "
-                                 f"of {FLOAT_DTYPES}")
-            object.__setattr__(self, field, name)
+        name = str(self.dtype).lower().replace("torch.", "")
+        name = _DTYPE_ALIASES.get(name, name)
+        if name == "int8":
+            # int8 weight quantization with half-precision compute
+            self.quant.enabled = True
+            name = "bfloat16"
+        if name not in FLOAT_DTYPES:
+            raise ValueError(f"unsupported dtype {name!r}; pick one of "
+                             f"{FLOAT_DTYPES + ('int8',)}")
+        object.__setattr__(self, "dtype", name)
+        if self.quant.num_bits not in (8, 4) or self.quant.group_size < 1:
+            raise ValueError(f"unsupported quant section {self.quant}: "
+                             "num_bits is 8 or 4, group_size at least 1")
+        kv = str(self.kv_cache_dtype).lower().replace("torch.", "")
+        kv = _KV_ALIASES.get(kv, kv)
+        if kv not in FLOAT_DTYPES + KV_QUANT_DTYPES:
+            raise ValueError(f"unsupported kv_cache_dtype {kv!r}; pick one "
+                             f"of {FLOAT_DTYPES + KV_QUANT_DTYPES}")
+        object.__setattr__(self, "kv_cache_dtype", kv)
         if self.paged_kernel not in ("auto", "force"):
             raise ValueError(
                 f"unsupported paged_kernel {self.paged_kernel!r}; pick "

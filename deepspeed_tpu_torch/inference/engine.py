@@ -1,11 +1,13 @@
 """InferenceEngine: the serving wrapper of the PyTorch port (counterpart
 of ``deepspeed_tpu/inference/engine.py``).
 
-What carries over: ``init_params`` / ``set_params``, ``generate`` over a
-dense KV cache bucketed to 128 positions, the greedy contract of
-``sample_from_logits``, and the slot primitives the paged scheduler
-drives — ``init_paged_cache``, ``prefill_into_slots``, ``decode_step``
-and ``decode_multi``.  ``jit`` has no counterpart: PyTorch runs eagerly,
+What carries over: ``init_params`` / ``set_params`` (with weight-only
+int8 quantization of every ``QDense`` when the config's ``quant`` section
+is enabled), ``generate`` over a dense KV cache bucketed to 128
+positions, the greedy contract of ``sample_from_logits``, and the slot
+primitives the paged scheduler drives — ``init_paged_cache`` (float or
+int8 / fp8 pools, per pool), ``prefill_into_slots``, ``decode_step`` and
+``decode_multi``.  ``jit`` has no counterpart: PyTorch runs eagerly,
 so ``decode_multi``'s ``lax.scan`` is a Python loop over the horizon
 whose carries (token, active mask, lengths, emitted count) stay on the
 device; the host syncs once per horizon, when the scheduler pulls the
@@ -24,6 +26,9 @@ import torch
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.ops.attention.decode import paged_kernel_decision
+from deepspeed_tpu_torch.ops.quant import kv as kvq
+from deepspeed_tpu_torch.ops.quant.quantizer import (dequantize_tree,
+                                                     quantize_tree)
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -60,7 +65,11 @@ class InferenceEngine:
             raise ValueError("paged_kernel='force' needs the kernels, which "
                              "run only on a CUDA device")
         self.dtype = DTYPES[config.dtype]
-        self.kv_dtype = DTYPES[config.kv_cache_dtype]
+        # a torch dtype (float pools) or the quantized kv-dtype NAME
+        # ("int8" / "fp8": payload pools + per-row f32 scale pools,
+        # ops/quant/kv.py); fp8 support is validated here, not at the
+        # first serving dispatch
+        self.kv_dtype = self._resolve_kv_dtype(config.kv_cache_dtype)
         self.seed = int(seed)
         if config.replace_with_kernel_inject and \
                 model.cfg.attn_impl != "auto":
@@ -71,17 +80,42 @@ class InferenceEngine:
                                 device="meta").to_empty(device=self.device)
             fresh.load_state_dict(model.state_dict())
             model = fresh
-        self.module = model.to(device=self.device, dtype=self.dtype).eval()
+        self.module = model.to(device=self.device).eval()
         self.module.requires_grad_(False)
+        if not config.quant.enabled and any(
+                getattr(m, "quantized", False) for m in model.modules()):
+            raise ValueError(
+                "the module holds int8 weights but the config's quant "
+                "section is off: pass dtype='int8' or quant={'enabled': "
+                "True}, or dequantize_tree(module) first")
+        # the module arrives with weights: cast them to the compute dtype
+        # and quantize them if the config says so
+        self._cast_params()
+        if config.quant.enabled:
+            self._postprocess_params()
         if params is not None:
             self.set_params(params)
 
     # ------------------------------------------------------------ params
     @torch.no_grad()
-    def init_params(self, seed=None):
+    def _cast_params(self):
+        """Float parameters to the compute dtype.  Quantized layers keep
+        their int8 payload and float32 scales and compute in it."""
+        for p in self.module.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(self.dtype)
+        for m in self.module.modules():
+            if getattr(m, "quantized", False):
+                m.qdtype = self.dtype
+
+    @torch.no_grad()
+    def init_params(self, seed=None, quantize=None):
         """Random weights from a seeded ``torch.Generator`` on the engine's
         device: normal(0, 0.02) projections and embeddings, ones for the
-        norms — the flax initializers of the JAX model."""
+        norms — the flax initializers of the JAX model.  Then quantized
+        as :meth:`set_params` does."""
+        dequantize_tree(self.module)      # float weights to draw into
+        self._cast_params()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed if seed is None else int(seed))
         for name, p in self.module.named_parameters():
@@ -89,22 +123,48 @@ class InferenceEngine:
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=gen)
-        self._log_params()
-        return self
+        return self._postprocess_params(quantize=quantize)
 
     @torch.no_grad()
-    def set_params(self, state_dict):
-        """Load a ``state_dict`` (tensors or numpy arrays), cast to the
-        engine's dtype and placed on its device."""
+    def set_params(self, state_dict, quantize=None):
+        """Load a float ``state_dict`` (tensors or numpy arrays), cast to
+        the engine's dtype and placed on its device; with ``quant.enabled``
+        every ``QDense`` weight then quantizes to int8 groups
+        (``engine.py:352-373`` of the JAX package).  ``quantize=False``
+        keeps floats."""
+        dequantize_tree(self.module)
+        self._cast_params()
         state = {k: torch.as_tensor(v) for k, v in state_dict.items()}
         self.module.load_state_dict(state, strict=True)
-        self._log_params()
+        return self._postprocess_params(quantize=quantize)
+
+    @torch.no_grad()
+    def _postprocess_params(self, quantize=None):
+        """Quantize the module's float ``QDense`` weights per the config,
+        layer by layer on the engine's device (peak: the float model plus
+        one layer).  The JAX leaf predicate is ``"kernel" in path``
+        (``engine.py:452-455``): every ``QDense`` — wq/wk/wv/wo,
+        w_gate/w_up/w_down and ``lm_head`` — and never ``embed_tokens``
+        or the norms; the sweep here visits exactly the ``QDense``
+        layers."""
+        qcfg = self._config.quant
+        quantize = qcfg.enabled if quantize is None else quantize
+        if quantize:
+            quantize_tree(self.module, bits=qcfg.num_bits,
+                          group_size=qcfg.group_size)
+        n = sum(p.numel() for p in self.module.parameters()) + \
+            sum(m.q.numel() for m in self.module.modules()
+                if getattr(m, "quantized", False))
+        log_dist(f"inference params ready: {n / 1e6:.1f}M, dtype="
+                 f"{self._config.dtype}{' +int8' if quantize else ''}, "
+                 f"device={self.device}", ranks=[0])
         return self
 
-    def _log_params(self):
-        n = sum(p.numel() for p in self.module.parameters())
-        log_dist(f"inference params ready: {n / 1e6:.1f}M, dtype="
-                 f"{self._config.dtype}, device={self.device}", ranks=[0])
+    @property
+    def weight_dtype_name(self):
+        """Canonical weight-storage dtype for operator surfaces: "int8"
+        under weight-only quantization, else the compute dtype name."""
+        return "int8" if self._config.quant.enabled else self._config.dtype
 
     # ----------------------------------------------------------- forward
     @torch.no_grad()
@@ -153,8 +213,13 @@ class InferenceEngine:
         bucket = 128
         cache_len = min(-(-max_len // bucket) * bucket,
                         self._config.max_out_tokens)
+        # a quantized kv dtype applies to the PAGED pools only: the dense
+        # cache is float32 then, because generate() is the oracle the
+        # quantized serving path is measured against
+        cache_dtype = torch.float32 if kvq.is_quantized_kv(self.kv_dtype) \
+            else self.kv_dtype
         cache = llama.init_kv_cache(self.module.cfg, b, max_len=cache_len,
-                                    dtype=self.kv_dtype, device=self.device)
+                                    dtype=cache_dtype, device=self.device)
         logits, cache = self.module(
             torch.as_tensor(ids, device=self.device).long(), cache=cache)
         tok = _sample_tokens(logits[:, -1])
@@ -174,30 +239,66 @@ class InferenceEngine:
         return np.concatenate([ids, gen], axis=1)
 
     # ------------------------------------------------------ paged serving
-    def paged_kernel_decision(self):
+    def _resolve_kv_dtype(self, kv_dtype=None):
+        """``None`` (the engine's), a torch dtype, a float name or a
+        quantized name -> a torch dtype or "int8" / "fp8"."""
+        dt = self.kv_dtype if kv_dtype is None else kv_dtype
+        if isinstance(dt, str):
+            if dt in DTYPES:
+                dt = DTYPES[dt]
+            elif dt in kvq.KV_QUANT_DTYPES:
+                kvq.kv_storage_dtype(dt)      # fp8 runtime gate
+            else:
+                raise ValueError(
+                    f"unsupported kv_dtype {dt!r}; pick one of "
+                    f"{sorted(DTYPES) + sorted(kvq.KV_QUANT_DTYPES)}")
+        return dt
+
+    def paged_kernel_decision(self, pools=None, kv_dtype=None):
         """The paged-attention dispatch decision for this engine's device
-        and model (``ops/attention/decode.paged_kernel_decision``)."""
+        and model (``ops/attention/decode.paged_kernel_decision``) over
+        the live ``pools`` when given, else over a pool of ``kv_dtype``
+        (default: the engine's).  Float pools attend in their own dtype;
+        quantized pools dequantize to the compute dtype."""
         cfg = self.module.cfg
+        if pools is not None:
+            layer = pools["layers"][0]
+            storage = layer["k_pages"].dtype
+            quantized = "k_scale" in layer
+        else:
+            dt = self._resolve_kv_dtype(kv_dtype)
+            quantized = kvq.is_quantized_kv(dt)
+            storage = kvq.kv_storage_dtype(dt) if quantized else dt
         return paged_kernel_decision(
             device_type=self.device.type, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-            dtype=self.kv_dtype)
+            dtype=self.dtype if quantized else storage,
+            storage_dtype=storage if quantized else None)
 
     def init_paged_cache(self, num_pages, page_size, kv_dtype=None):
         """Per-layer K/V page pools on the engine's device (each holds
-        ``num_pages`` pages plus the drop sink, ``ops/quant/kv.py``)."""
-        if kv_dtype is not None:
-            raise NotImplementedError(
-                "a per-pool kv_dtype is not ported to the PyTorch package "
-                "yet: see ROADMAP.md Queue A1 (quantized paged KV)")
-        dec = self.paged_kernel_decision()
+        ``num_pages`` pages plus the drop sink, ``ops/quant/kv.py``).
+        ``kv_dtype`` overrides the engine's configured kv_cache_dtype for
+        THIS pool: a torch dtype, a float name or a quantized name
+        ("int8" / "fp8" — the pools then carry f32 scale leaves)."""
+        dt = self._resolve_kv_dtype(kv_dtype)
+        dec = self.paged_kernel_decision(kv_dtype=dt)
         if dec["path"] == "unsupported":
             raise ValueError(dec["reason"])
         log_dist(f"paged attention path: {dec['path']} — {dec['reason']}",
                  ranks=[0])
         return llama.init_paged_kv_cache(self.module.cfg, num_pages,
-                                         page_size, dtype=self.kv_dtype,
+                                         page_size, dtype=dt,
                                          device=self.device)
+
+    def kv_page_bytes(self, page_size, kv_dtype=None):
+        """Exact bytes ONE paged-KV page costs across all layers (K + V
+        payload + the f32 scale rows of a quantized pool); agrees with
+        the allocated leaves to the byte."""
+        cfg = self.module.cfg
+        return kvq.kv_page_bytes(cfg.num_layers, cfg.num_kv_heads,
+                                 cfg.head_dim, page_size,
+                                 self._resolve_kv_dtype(kv_dtype))
 
     def _stage(self, x, dtype):
         """Host array (or a carry already on the device) -> device tensor."""

@@ -13,11 +13,18 @@ adapters (Queue A10) wait.
 Caches are dicts of tensors updated IN PLACE (the JAX model returned new
 arrays): the dense layer dict carries ``k``/``v`` buffers and a Python
 ``index``; paged layers carry the pools of ``ops/quant/kv.py`` (whose
-last page is the drop sink).
+last page is the drop sink): two float leaves, or four when the pool is
+quantized (int8 / fp8 payload plus per-row scale pools).  Attention runs
+in the float pools' dtype (the query is cast to it); over quantized
+pools it runs in the query's dtype, to which K/V dequantize.
+
+Every projection is a ``QDense``: float, or weight-only int8 after
+``ops/quant/quantizer.quantize_tree`` (the engine's ``quantize=``).
 """
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -33,6 +40,7 @@ from deepspeed_tpu_torch.ops.quant.kv import (paged_gather,
                                               paged_pool_layer, paged_write,
                                               sink_page)
 from deepspeed_tpu_torch.ops.quant.qdense import QDense
+from deepspeed_tpu_torch.ops.quant.quantizer import QTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +121,11 @@ class LlamaAttention(nn.Module):
         elif "k_pages" in cache:
             pt = cache["page_table"]
             ps, max_pages = cache["k_pages"].shape[1], pt.shape[1]
-            kv_dtype = cache["k_pages"].dtype
+            # float pools: attend in the pool's dtype; quantized pools
+            # dequantize to the query's (models/llama.py:160-161 of the
+            # JAX package)
+            attn_dtype = q.dtype if "k_scale" in cache \
+                else cache["k_pages"].dtype
             sink = sink_page(cache)
             if "slot" in cache:          # chunked prefill (b == 1)
                 slot, n_valid = cache["slot"], cache["n_valid"]
@@ -126,9 +138,9 @@ class LlamaAttention(nn.Module):
                     sink)
                 paged_write(cache, page_ids, pos % ps, k[0], v[0])
                 k_slot, v_slot = paged_gather(cache, pt[slot][None],
-                                              kv_dtype)
+                                              attn_dtype)
                 bias = _validity_bias(max_pages * ps, positions)[:, None]
-                out = decode_attention(q.to(kv_dtype), k_slot, v_slot,
+                out = decode_attention(q.to(attn_dtype), k_slot, v_slot,
                                        bias=bias)
             else:                        # continuous-batch decode (l == 1)
                 pos = positions[:, 0]
@@ -138,8 +150,9 @@ class LlamaAttention(nn.Module):
                     pt[rows, (pos // ps).clamp(max=max_pages - 1)], sink)
                 paged_write(cache, page_ids, pos % ps, k[:, 0], v[:, 0])
                 out = paged_decode_attention(
-                    q.to(kv_dtype), cache["k_pages"], cache["v_pages"], pt,
-                    pos)
+                    q.to(attn_dtype), cache["k_pages"], cache["v_pages"],
+                    pt, pos, k_scale=cache.get("k_scale"),
+                    v_scale=cache.get("v_scale"))
         else:                            # dense cache (generate)
             index = cache["index"]
             k_cache, v_cache = cache["k"], cache["v"]
@@ -264,7 +277,9 @@ def init_kv_cache(cfg, batch_size, max_len=None, dtype=torch.bfloat16,
 def init_paged_kv_cache(cfg, num_pages, page_size, dtype=torch.bfloat16,
                         device=None):
     """Per-layer paged KV pools; GQA pools are sized to num_kv_heads and
-    stay grouped through the paged kernel."""
+    stay grouped through the paged kernel.  ``dtype`` is a torch float
+    dtype or a quantized kv-dtype name ("int8" / "fp8": payload pools
+    plus per-row f32 scale pools, ``ops/quant/kv.py``)."""
     return {"layers": [paged_pool_layer(num_pages, page_size,
                                         cfg.num_kv_heads, cfg.head_dim,
                                         dtype, device=device)
@@ -294,6 +309,56 @@ def llama_params_from_jax(tree):
                     t(layer[group][name]["kernel"].T)
         i += 1
     return out
+
+
+def _dense_layers(tree):
+    """(port module name, JAX ``QDense`` param dict) of every projection."""
+    out = [("lm_head", tree["lm_head"])]
+    i = 0
+    while f"layers_{i}" in tree:
+        layer = tree[f"layers_{i}"]
+        for group, names in (("attn", ("wq", "wk", "wv", "wo")),
+                             ("mlp", ("w_gate", "w_up", "w_down"))):
+            out += [(f"layers.{i}.{group}.{name}", layer[group][name])
+                    for name in names]
+        i += 1
+    return out
+
+
+def load_quantized_params_from_jax(module, tree):
+    """Carry a JAX ``Llama`` param tree whose ``kernel`` leaves may be
+    quantized into ``module``, in place.  A quantized leaf is anything
+    with ``q``, ``scale``, ``dtype``, ``bits`` and ``group_size``
+    attributes (the JAX ``QTensor``, arrays convertible with
+    ``numpy.asarray``): its ``q`` and ``scale`` are taken as they are —
+    the port keeps the JAX ``[in, out]`` orientation — and the layer
+    computes in the dtype the leaf names.  Float leaves carry over as in
+    :func:`llama_params_from_jax`, cast to the module's dtype.  Returns
+    ``module``."""
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    layers = dict(module.named_modules())
+    with torch.no_grad():
+        module.embed_tokens.weight.copy_(t(tree["embed_tokens"]))
+        module.norm.scale.copy_(t(tree["norm"]["scale"]))
+        for i, block in enumerate(module.layers):
+            for norm in ("input_norm", "post_attn_norm"):
+                getattr(block, norm).scale.copy_(
+                    t(tree[f"layers_{i}"][norm]["scale"]))
+        for name, params in _dense_layers(tree):
+            kernel, layer = params["kernel"], layers[name]
+            if hasattr(kernel, "scale"):
+                dtype = getattr(torch, np.dtype(kernel.dtype).name)
+                layer.set_qtensor_(QTensor(
+                    t(kernel.q), t(kernel.scale), dtype, kernel.bits,
+                    kernel.group_size))
+            elif layer.quantized:
+                raise ValueError(f"{name} is quantized but the tree holds "
+                                 "a float kernel for it")
+            else:
+                layer.weight.copy_(t(kernel).T)
+    return module
 
 
 def llama_tiny(**overrides):

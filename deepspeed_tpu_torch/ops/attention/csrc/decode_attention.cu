@@ -7,6 +7,13 @@
 //                        (:293) via _paged_decode_pallas_gqa (pallas_call
 //                        :411): one kernel, `group` = heads / kv_heads
 //                        (group 1 is MHA);
+//   paged_decode_quant_fwd <- _paged_decode_kernel_quant (:171, pallas_call
+//                        :471) and the quantized=True branch of
+//                        _paged_decode_kernel_gqa (:310-338, pallas_call
+//                        :411): the same kernel over int8 or fp8-e4m3
+//                        payload pools with one fp32 scale per token row
+//                        per kv head ([pages, page_size, kv_heads, 1]),
+//                        the storage type being a template parameter;
 //   decode_fwd        <- _decode_kernel (:36) via _decode_pallas
 //                        (pallas_call :104), over a dense cache with an
 //                        additive bias.
@@ -16,7 +23,8 @@
 // flop/byte ridge, so the floor is the K/V bytes the kernel must read
 // divided by 3.35 TB/s: the live prefix (keys <= position) of every slot
 // for the paged kernel, the whole [b, max_len] cache (plus the fp32 bias)
-// for the dense one.
+// for the dense one.  A quantized pool costs head_dim + 4 bytes per row
+// per kv head (payload and scale) where a bf16 pool costs 2 * head_dim.
 //
 // What the design does about that bound:
 //  * grid (sequence, kv head): a block reads its kv head's K/V rows once
@@ -30,20 +38,33 @@
 //    t <= positions[slot]: pages past the position (and unallocated
 //    table entries, which are 0) are never touched;
 //  * scores, probabilities and the online-softmax state stay in shared
-//    memory and registers; only the [group, head_dim] output is written.
+//    memory and registers; only the [group, head_dim] output is written;
+//  * a quantized row is loaded as 16 bytes = 16 elements per thread and
+//    dequantized in registers; the 64 K scales and 64 V scales of a round
+//    are fetched once per block into shared memory through the same
+//    (page, offset, kv head) index as the payload, not once per lane;
+//    loads in flight stay packed (4 registers per 16 bytes) until used.
 // Not yet: splitting long contexts across blocks (flash-decoding), TMA,
 // wgmma. With few sequences the grid does not fill the 132 SMs, which
-// caps the bandwidth it reaches.
+// caps the bandwidth it reaches.  With 16 elements per thread a
+// head_dim-128 row occupies 8 of a warp's 32 lanes in the score phase,
+// and the accumulators (16 floats per query head of the group) limit a
+// quantized pool to groups of at most 8.
 //
 // Numerics follow the TPU kernels: fp32 scores = (q . k) * scale (+ bias),
 // clamped at NEG_INF = -1e30 (ops/attention/flash.py:42); a row whose
 // running max is still NEG_INF is dead (its probabilities are 0 and a
 // fully masked row writes zeros); probabilities are cast to the value
 // dtype before the PV product; the output is acc / l in fp32, then cast.
+// A quantized element is float(payload) * scale in fp32, rounded to the
+// compute dtype (q's) before the dot, as decode.py:196-199 does.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -54,14 +75,18 @@ constexpr int kTile = 64;                    // keys per round (2 per lane)
 constexpr int kKeysPerWarp = kTile / kWarps;
 constexpr int kUnroll = 4;                   // rows in flight per warp
 constexpr int kMaxHeadDim = 256;
-
-template <typename T> struct Vec;            // elements in 16 bytes
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+static_assert(kThreads == 2 * kTile, "the scale fetch maps one thread to "
+              "each K and each V row of a round");
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
@@ -72,12 +97,26 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T>
-__device__ __forceinline__ void load16(const T* src, float* dst) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-  const T* e = reinterpret_cast<const T*>(&raw);
+// 16 bytes of a K/V row, kept packed while the load is in flight
+template <typename S>
+__device__ __forceinline__ uint4 load16(const S* src) {
+  return __ldg(reinterpret_cast<const uint4*>(src));
+}
+
+// the 16 / sizeof(S) elements of a packed load as floats: a float pool's
+// values as they are; a quantized pool's times the row's scale, rounded
+// to the compute type T
+template <typename T, typename S>
+__device__ __forceinline__ void unpack16(const uint4& raw, float s,
+                                         float* dst) {
+  const S* e = reinterpret_cast<const S*>(&raw);
 #pragma unroll
-  for (int i = 0; i < Vec<T>::N; ++i) dst[i] = to_float(e[i]);
+  for (int i = 0; i < 16 / (int)sizeof(S); ++i) {
+    if (std::is_same<T, S>::value)
+      dst[i] = to_float(e[i]);
+    else
+      dst[i] = to_float(from_float<T>(to_float(e[i]) * s));
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -100,6 +139,8 @@ struct Params {
   void* out;                  // like q
   const int* page_table;      // paged: [n_seq, max_pages]
   const int* positions;       // paged: [n_seq]
+  const float* k_scale;       // quantized pools: [pages, page_size,
+  const float* v_scale;       //   kv_heads, 1]
   const float* bias;          // dense: element (b, h, 0, t) at
   long long bias_sb, bias_sh, bias_sk;   // b*sb + h*sh + t*sk
   int kv_heads, group, head_dim;
@@ -108,21 +149,30 @@ struct Params {
   float scale;
 };
 
-// element offset of key t's row for sequence b, kv head kvh
+// index of key t's row for sequence b, kv head kvh: its scale's offset in
+// a scale pool, and times head_dim its first element's in a payload pool
+template <bool kPaged>
+__device__ __forceinline__ size_t row_index(const Params& p, int b, int t,
+                                            int kvh) {
+  if (kPaged) {
+    const int page = p.page_table[(size_t)b * p.max_pages + t / p.page_size];
+    return ((size_t)page * p.page_size + t % p.page_size) * p.kv_heads + kvh;
+  }
+  return ((size_t)b * p.max_len + t) * p.kv_heads + kvh;
+}
+
 template <bool kPaged>
 __device__ __forceinline__ size_t row_offset(const Params& p, int b, int t,
                                              int kvh) {
-  if (kPaged) {
-    const int page = p.page_table[(size_t)b * p.max_pages + t / p.page_size];
-    return (((size_t)page * p.page_size + t % p.page_size) * p.kv_heads +
-            kvh) * p.head_dim;
-  }
-  return (((size_t)b * p.max_len + t) * p.kv_heads + kvh) * p.head_dim;
+  return row_index<kPaged>(p, b, t, kvh) * p.head_dim;
 }
 
-template <typename T, int kMaxGroup, bool kPaged>
+// T: the compute type (q's and the output's); S: the pools' storage type,
+// T itself for a float cache, int8_t or __nv_fp8_e4m3 for a quantized one
+template <typename T, typename S, int kMaxGroup, bool kPaged>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
-  constexpr int N = Vec<T>::N;
+  constexpr bool kQuant = !std::is_same<T, S>::value;
+  constexpr int N = 16 / (int)sizeof(S);     // elements in 16 bytes
   constexpr int kChunksPerLane = (kMaxHeadDim / N + 31) / 32;
   const int b = blockIdx.x, kvh = blockIdx.y;
   const int G = p.group, D = p.head_dim, H = p.kv_heads * G;
@@ -138,7 +188,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   float* m_s = p_s + G * kTile;       // [G] running max
   float* l_s = m_s + G;               // [G] running sum
   float* a_s = l_s + G;               // [G] this round's rescale factor
-  float* red_s = a_s + G;             // [n_slices][D] final reduction
+  float* ks_s = a_s + G;              // [kTile] this round's K scales
+  float* vs_s = ks_s + kTile;         // [kTile] and V scales (quantized)
+  float* red_s = vs_s + kTile;        // [n_slices][D] final reduction
 
   const T* q = static_cast<const T*>(p.q) +
                ((size_t)b * H + (size_t)kvh * G) * D;
@@ -151,8 +203,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   const int n_keys = kPaged ? max(0, min(p.positions[b] + 1,
                                          p.page_size * p.max_pages))
                             : p.max_len;
-  const T* kp = static_cast<const T*>(p.k);
-  const T* vp = static_cast<const T*>(p.v);
+  const S* kp = static_cast<const S*>(p.k);
+  const S* vp = static_cast<const S*>(p.v);
 
   float acc[kMaxGroup][N];
 #pragma unroll
@@ -164,25 +216,44 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   for (int t0 = 0; t0 < n_keys; t0 += kTile) {
     const int tn = min(kTile, n_keys - t0);
 
+    // (0) quantized pools: the round's scales, once per block (the first
+    // 64 threads take K's, the other 64 V's)
+    if (kQuant) {
+      const int tt = tid & (kTile - 1);
+      if (tt < tn) {
+        const size_t row = row_index<kPaged>(p, b, t0 + tt, kvh);
+        if (tid < kTile) ks_s[tt] = p.k_scale[row];
+        else vs_s[tt] = p.v_scale[row];
+      }
+      __syncthreads();
+    }
+
     // (1) scores: warp w owns keys [w*16, w*16+16) of the round, four at
     // a time; a lane holds 16-byte chunks of each key row
     for (int u0 = 0; u0 < kKeysPerWarp; u0 += kUnroll) {
-      float kv[kUnroll][kChunksPerLane][N];
+      uint4 raw[kUnroll][kChunksPerLane];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int tt = warp * kKeysPerWarp + u0 + u;
         if (tt < tn) {
-          const T* row = kp + row_offset<kPaged>(p, b, t0 + tt, kvh);
+          const S* row = kp + row_offset<kPaged>(p, b, t0 + tt, kvh);
 #pragma unroll
           for (int j = 0; j < kChunksPerLane; ++j) {
             const int c = lane + 32 * j;
-            if (c < n_chunks) load16(row + c * N, kv[u][j]);
+            if (c < n_chunks) raw[u][j] = load16(row + c * N);
           }
         }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int tt = warp * kKeysPerWarp + u0 + u;
+        float kv[kChunksPerLane][N];
+        if (tt < tn) {
+          const float ks = kQuant ? ks_s[tt] : 1.f;
+#pragma unroll
+          for (int j = 0; j < kChunksPerLane; ++j)
+            if (lane + 32 * j < n_chunks) unpack16<T, S>(raw[u][j], ks, kv[j]);
+        }
 #pragma unroll
         for (int g = 0; g < kMaxGroup; ++g) {
           if (g < G) {
@@ -195,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
                 if (c < n_chunks) {
                   const float* qq = q_s + g * D + c * N;
 #pragma unroll
-                  for (int i = 0; i < N; ++i) dot += kv[u][j][i] * qq[i];
+                  for (int i = 0; i < N; ++i) dot += kv[j][i] * qq[i];
                 }
               }
               s = warp_sum(dot) * p.scale;
@@ -244,24 +315,26 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
         }
       }
       for (int tt0 = my_slice; tt0 < tn; tt0 += n_slices * kUnroll) {
-        float vv[kUnroll][N];
+        uint4 raw[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int tt = tt0 + u * n_slices;
           if (tt < tn)
-            load16(vp + row_offset<kPaged>(p, b, t0 + tt, kvh) +
-                   my_chunk * N, vv[u]);
+            raw[u] = load16(vp + row_offset<kPaged>(p, b, t0 + tt, kvh) +
+                            my_chunk * N);
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int tt = tt0 + u * n_slices;
           if (tt < tn) {
+            float vv[N];
+            unpack16<T, S>(raw[u], kQuant ? vs_s[tt] : 1.f, vv);
 #pragma unroll
             for (int g = 0; g < kMaxGroup; ++g) {
               if (g < G) {
                 const float pg = p_s[g * kTile + tt];
 #pragma unroll
-                for (int i = 0; i < N; ++i) acc[g][i] += pg * vv[u][i];
+                for (int i = 0; i < N; ++i) acc[g][i] += pg * vv[i];
               }
             }
           }
@@ -293,37 +366,51 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   }
 }
 
-template <typename T, bool kPaged>
+template <typename T, typename S, bool kPaged>
 cudaError_t launch(const Params& p, int n_seq, cudaStream_t stream) {
-  const int n_slices = kThreads / (p.head_dim / Vec<T>::N);
+  constexpr int N = 16 / (int)sizeof(S);
+  if (p.head_dim % N != 0) return cudaErrorInvalidValue;
+  const int n_slices = kThreads / (p.head_dim / N);
   const size_t smem = sizeof(float) *
-      ((size_t)p.group * (p.head_dim + kTile + 3) +
+      ((size_t)p.group * (p.head_dim + kTile + 3) + 2 * kTile +
        (size_t)n_slices * p.head_dim);
   const dim3 grid(n_seq, p.kv_heads);
   if (p.group == 1)
-    decode_kernel<T, 1, kPaged><<<grid, kThreads, smem, stream>>>(p);
+    decode_kernel<T, S, 1, kPaged><<<grid, kThreads, smem, stream>>>(p);
   else if (p.group == 2)
-    decode_kernel<T, 2, kPaged><<<grid, kThreads, smem, stream>>>(p);
+    decode_kernel<T, S, 2, kPaged><<<grid, kThreads, smem, stream>>>(p);
   else if (p.group <= 4)
-    decode_kernel<T, 4, kPaged><<<grid, kThreads, smem, stream>>>(p);
+    decode_kernel<T, S, 4, kPaged><<<grid, kThreads, smem, stream>>>(p);
   else if (p.group <= 8)
-    decode_kernel<T, 8, kPaged><<<grid, kThreads, smem, stream>>>(p);
-  else
-    decode_kernel<T, 16, kPaged><<<grid, kThreads, smem, stream>>>(p);
+    decode_kernel<T, S, 8, kPaged><<<grid, kThreads, smem, stream>>>(p);
+  else if (std::is_same<T, S>::value)
+    decode_kernel<T, T, 16, kPaged><<<grid, kThreads, smem, stream>>>(p);
+  else                        // 16 accumulators per head: groups <= 8
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
 bool shapes_ok(int n_seq, int kv_heads, int group, int head_dim, int dtype) {
   return n_seq > 0 && kv_heads > 0 && kv_heads <= 65535 && group >= 1 &&
-         group <= 16 && head_dim > 0 && head_dim % 8 == 0 &&
-         head_dim <= kMaxHeadDim && (dtype == 0 || dtype == 1);
+         group <= 16 && head_dim > 0 && head_dim <= kMaxHeadDim &&
+         (dtype == 0 || dtype == 1);
 }
 
 template <bool kPaged>
 int dispatch(const Params& p, int n_seq, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == 0 ? launch<float, kPaged>(p, n_seq, s)
-                                     : launch<__nv_bfloat16, kPaged>(p, n_seq, s));
+  return static_cast<int>(
+      dtype == 0 ? launch<float, float, kPaged>(p, n_seq, s)
+                 : launch<__nv_bfloat16, __nv_bfloat16, kPaged>(p, n_seq, s));
+}
+
+// storage: 1 = int8, 2 = fp8 e4m3
+template <typename S>
+int dispatch_quant(const Params& p, int n_seq, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == 0 ? launch<float, S, true>(p, n_seq, s)
+                 : launch<__nv_bfloat16, S, true>(p, n_seq, s));
 }
 
 }  // namespace
@@ -352,6 +439,37 @@ extern "C" int paged_decode_fwd(const void* q, const void* k_pages,
   p.max_pages = max_pages;
   p.scale = scale;
   return dispatch<true>(p, slots, dtype, stream);
+}
+
+// The same over quantized pools: k_pages / v_pages hold int8 (storage 1) or
+// fp8 e4m3 (storage 2) payload, k_scale / v_scale one float32 per row per
+// kv head; dtype is q's and the output's.
+extern "C" int paged_decode_quant_fwd(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, void* out,
+    const void* page_table, const void* positions, int slots, int kv_heads,
+    int group, int head_dim, int page_size, int max_pages, float scale,
+    int dtype, int storage, void* stream) {
+  if (!shapes_ok(slots, kv_heads, group, head_dim, dtype) || page_size <= 0 ||
+      max_pages <= 0 || (storage != 1 && storage != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = {};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  p.out = out;
+  p.page_table = static_cast<const int*>(page_table);
+  p.positions = static_cast<const int*>(positions);
+  p.kv_heads = kv_heads;
+  p.group = group;
+  p.head_dim = head_dim;
+  p.page_size = page_size;
+  p.max_pages = max_pages;
+  p.scale = scale;
+  return storage == 1 ? dispatch_quant<int8_t>(p, slots, dtype, stream)
+                      : dispatch_quant<__nv_fp8_e4m3>(p, slots, dtype, stream);
 }
 
 extern "C" int decode_fwd(const void* q, const void* k_cache,

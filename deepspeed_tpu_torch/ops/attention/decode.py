@@ -1,11 +1,13 @@
 """Single-token decode attention over dense and paged KV caches
 (counterpart of ``deepspeed_tpu/ops/attention/decode.py``).
 
-Two hand-written CUDA kernels for Hopper live in
+Three hand-written CUDA kernels for Hopper live in
 ``csrc/decode_attention.cu`` (its header note names the TPU kernels they
 replace, their bound and the design): ``paged_decode_fwd`` (paged MHA
-and GQA in one kernel) and ``decode_fwd`` (dense cache + additive bias).
-Each public function here has a plain PyTorch version beside it.
+and GQA in one kernel), ``paged_decode_quant_fwd`` (the same over int8 /
+fp8 pools with per-row scale pools, dequantized in registers) and
+``decode_fwd`` (dense cache + additive bias).  Each public function here
+has a plain PyTorch version beside it.
 
 The dispatch rule is the tensor's device: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises — there is no
@@ -21,9 +23,14 @@ from deepspeed_tpu_torch.ops.attention.reference import mha_reference
 
 NEG_INF = -1e30   # masked-score floor, as ops/attention/flash.py:42
 
-_LAUNCHES = {"paged_decode_fwd": 0, "decode_fwd": 0}
+_LAUNCHES = {"paged_decode_fwd": 0, "paged_decode_quant_fwd": 0,
+             "decode_fwd": 0}
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_QUANT_STORAGE = {torch.int8: 1}          # + float8_e4m3fn: 2, where built
+if hasattr(torch, "float8_e4m3fn"):
+    _QUANT_STORAGE[torch.float8_e4m3fn] = 2
 MAX_GROUP = 16
+MAX_GROUP_QUANT = 8   # 16 accumulators per query head fill the registers
 MAX_HEAD_DIM = 256
 
 
@@ -62,12 +69,17 @@ def gather_pages(pages, page_table):
 
 
 def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
-                          head_dim, dtype=None):
+                          head_dim, dtype=None, storage_dtype=None):
     """The paged-attention dispatch rule, as data: ``{"path": "kernel" |
     "reference" | "unsupported", "reason": str}``.  A CPU tensor runs
     the plain version; a CUDA tensor runs the kernel when its shapes
-    and dtype fit, and is otherwise refused (``"unsupported"`` — the
-    caller raises; it never falls back)."""
+    and dtypes fit, and is otherwise refused (``"unsupported"`` — the
+    caller raises; it never falls back).  ``dtype`` is the compute dtype
+    (the query's); ``storage_dtype`` the pools' payload dtype when it
+    differs (int8 / float8_e4m3fn of a quantized pool).  The kernels
+    load 16 bytes per thread, so ``head_dim`` must be a whole number of
+    16-byte loads of the STORAGE dtype: a multiple of 8 for 2- and
+    4-byte elements, of 16 for a 1-byte payload."""
     if device_type == "cpu":
         return {"path": "reference",
                 "reason": "CPU tensors run the plain PyTorch version"}
@@ -75,36 +87,46 @@ def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
         return {"path": "unsupported",
                 "reason": f"no decode kernel for device {device_type!r}"}
     group = num_heads // num_kv_heads if num_kv_heads else 0
+    quantized = storage_dtype is not None and storage_dtype != dtype
+    max_group = MAX_GROUP_QUANT if quantized else MAX_GROUP
+    # elements in one 16-byte load of the stored type
+    per_load = 16 if quantized else 8
     if not num_kv_heads or num_heads % num_kv_heads:
         reason = (f"num_heads={num_heads} is not a multiple of "
                   f"num_kv_heads={num_kv_heads}")
-    elif group > MAX_GROUP:
-        reason = f"group {group} > {MAX_GROUP} query heads per kv head"
-    elif head_dim % 8 or head_dim > MAX_HEAD_DIM:
-        reason = (f"head_dim={head_dim} must be a multiple of 8 and at "
-                  f"most {MAX_HEAD_DIM}")
+    elif quantized and storage_dtype not in _QUANT_STORAGE:
+        reason = (f"storage dtype {storage_dtype} (quantized pools hold "
+                  "int8 or float8_e4m3fn)")
+    elif group > max_group:
+        reason = (f"group {group} > {max_group} query heads per kv head"
+                  + (" over a quantized pool" if quantized else ""))
+    elif head_dim % per_load or head_dim > MAX_HEAD_DIM:
+        reason = (f"head_dim={head_dim} must be a multiple of {per_load} "
+                  + ("(16-byte loads of a 1-byte payload) " if quantized
+                     else "") + f"and at most {MAX_HEAD_DIM}")
     elif dtype is not None and dtype not in _KERNEL_DTYPES:
         reason = f"dtype {dtype} (the kernels take float32 and bfloat16)"
     else:
+        what = "quantized-pool kernel" if quantized else "kernel"
         return {"path": "kernel",
-                "reason": f"CUDA tensor: hand-written kernel, group {group}"}
+                "reason": f"CUDA tensor: hand-written {what}, group {group}"}
     return {"path": "unsupported", "reason": "decode kernel: " + reason}
 
 
 def _check_cuda(name, q, k, v, *extra):
-    """Device, contiguity, dtype and 16-byte alignment of q/k/v (the
-    kernels load 16 bytes per thread); ``extra`` tensors: device and
-    contiguity."""
+    """Device, contiguity and 16-byte alignment of q/k/v (the kernels
+    load 16 bytes per thread) and one dtype for k and v; ``extra``
+    tensors: device and contiguity."""
     for t in (q, k, v, *extra):
         if t.device != q.device:
             raise ValueError(f"{name}: every tensor must be on {q.device}, "
                              f"got one on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    if k.dtype != v.dtype:
+        raise ValueError(f"{name}: k/v dtypes differ ({k.dtype} vs "
+                         f"{v.dtype})")
     for t in (q, k, v):
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name}: q/k/v dtypes differ ({q.dtype} vs "
-                             f"{t.dtype})")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
 
@@ -118,16 +140,23 @@ def _raise_if_failed(name, err):
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, positions,
-                                 *, scale=None):
+                                 *, scale=None, k_scale=None, v_scale=None):
     """Plain version of :func:`paged_decode_attention`: gather each
-    slot's pages into a contiguous buffer, mask keys past the position,
-    and run the dense plain attention — the JAX gather fallback
-    (``decode.py:730-746``)."""
+    slot's pages into a contiguous buffer (a quantized pool's payload
+    and scales, dequantized to ``q.dtype``), mask keys past the
+    position, and run the dense plain attention — the JAX gather
+    fallback (``decode.py:730-746``)."""
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / (d ** 0.5)
     page_table = page_table.long()
-    k_full = gather_pages(k_pages, page_table)
-    v_full = gather_pages(v_pages, page_table)
+    if k_scale is not None:
+        from deepspeed_tpu_torch.ops.quant.kv import paged_gather
+        k_full, v_full = paged_gather(
+            {"k_pages": k_pages, "v_pages": v_pages, "k_scale": k_scale,
+             "v_scale": v_scale}, page_table, q.dtype)
+    else:
+        k_full = gather_pages(k_pages, page_table)
+        v_full = gather_pages(v_pages, page_table)
     k_pos = torch.arange(k_full.shape[1], device=q.device)
     mask = k_pos[None, None, None, :] <= positions.long()[:, None, None, None]
     bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
@@ -135,27 +164,41 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, positions,
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
-                           scale=None):
+                           scale=None, k_scale=None, v_scale=None):
     """Attention of ``q`` [slots, 1, heads, d] over a paged cache: pools
     ``k_pages``/``v_pages`` [num_pages, page_size, kv_heads, d] read
     through ``page_table`` [slots, max_pages]; keys at positions
     ``<= positions[slot]`` are live (the current token's K/V must already
-    be written).  Returns [slots, 1, heads, d]."""
+    be written).  ``k_scale``/``v_scale`` ([num_pages, page_size,
+    kv_heads, 1] f32) mark a QUANTIZED pool (int8 / fp8 payload,
+    ``ops/quant/kv.py``): a CUDA tensor then launches
+    ``paged_decode_quant_fwd``, which dequantizes to ``q.dtype`` in
+    registers.  Returns [slots, 1, heads, d]."""
     slots, l, h, d = q.shape
     if l != 1:
         raise ValueError(f"paged decode takes one query token, got {l}")
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("paged_decode_attention: k_scale and v_scale come "
+                         "together")
     decision = paged_kernel_decision(
         device_type=q.device.type, num_heads=h,
-        num_kv_heads=k_pages.shape[2], head_dim=d, dtype=q.dtype)
+        num_kv_heads=k_pages.shape[2], head_dim=d, dtype=q.dtype,
+        storage_dtype=k_pages.dtype if quantized else None)
     if decision["path"] == "reference":
-        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
-                                            positions, scale=scale)
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, page_table, positions, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
     if decision["path"] != "kernel":
         raise ValueError(decision["reason"])
+    if not quantized and k_pages.dtype != q.dtype:
+        raise ValueError(f"paged_decode_attention: q is {q.dtype} but the "
+                         f"float pools hold {k_pages.dtype}")
     page_table = page_table.to(torch.int32).contiguous()
     positions = positions.to(torch.int32).contiguous()
+    scales = (k_scale, v_scale) if quantized else ()
     _check_cuda("paged_decode_attention", q, k_pages, v_pages, page_table,
-                positions)
+                positions, *scales)
     num_pages, page_size, kv_h, _ = k_pages.shape
     if v_pages.shape != k_pages.shape or page_table.shape[0] != slots or \
             positions.shape != (slots,):
@@ -164,17 +207,34 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
                          f"{tuple(v_pages.shape)} table "
                          f"{tuple(page_table.shape)} positions "
                          f"{tuple(positions.shape)}")
+    for t in scales:
+        if t.shape != (num_pages, page_size, kv_h, 1) or \
+                t.dtype != torch.float32:
+            raise ValueError("paged_decode_attention: a scale pool must be "
+                             f"float32 {(num_pages, page_size, kv_h, 1)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
     out = torch.empty_like(q)
     if slots == 0:
         return out
     scale = float(scale) if scale is not None else 1.0 / (d ** 0.5)
-    err = _lib().paged_decode_fwd(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-        page_table.data_ptr(), positions.data_ptr(), slots, kv_h, h // kv_h,
-        d, page_size, page_table.shape[1], scale,
-        _KERNEL_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_if_failed("paged_decode_fwd", err)
-    _LAUNCHES["paged_decode_fwd"] += 1
+    shape_args = (slots, kv_h, h // kv_h, d, page_size, page_table.shape[1],
+                  scale, _KERNEL_DTYPES[q.dtype])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if quantized:
+        name = "paged_decode_quant_fwd"
+        err = _lib().paged_decode_quant_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+            page_table.data_ptr(), positions.data_ptr(), *shape_args,
+            _QUANT_STORAGE[k_pages.dtype], stream)
+    else:
+        name = "paged_decode_fwd"
+        err = _lib().paged_decode_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            out.data_ptr(), page_table.data_ptr(), positions.data_ptr(),
+            *shape_args, stream)
+    _raise_if_failed(name, err)
+    _LAUNCHES[name] += 1
     return out
 
 
@@ -213,6 +273,9 @@ def decode_attention(q, k_cache, v_cache, *, bias, scale=None):
         raise ValueError(decision["reason"])
     bias = bias.to(torch.float32).expand(b, h, 1, max_len)
     _check_cuda("decode_attention", q, k_cache, v_cache)
+    if k_cache.dtype != q.dtype:
+        raise ValueError(f"decode_attention: q is {q.dtype} but the cache "
+                         f"holds {k_cache.dtype}")
     if bias.device != q.device:
         raise ValueError(f"decode_attention: bias must be on {q.device}")
     if v_cache.shape != k_cache.shape or k_cache.shape[0] != b:

@@ -119,6 +119,12 @@ class DecodeAttentionBuilder(CUDAOpBuilder):
             _i, _i, _i, _i, _i, _i,             # slots kv_h group d ps maxp
             _f, _i, _p]                         # scale dtype stream
         lib.paged_decode_fwd.restype = _i
+        lib.paged_decode_quant_fwd.argtypes = [
+            _p, _p, _p, _p, _p, _p,             # q k v k_scale v_scale out
+            _p, _p,                             # table positions
+            _i, _i, _i, _i, _i, _i,             # slots kv_h group d ps maxp
+            _f, _i, _i, _p]                     # scale dtype storage stream
+        lib.paged_decode_quant_fwd.restype = _i
         lib.decode_fwd.argtypes = [
             _p, _p, _p, _p, _p,                 # q k v out bias
             _ll, _ll, _ll,                      # bias strides b, h, key
@@ -141,8 +147,20 @@ class FlashAttentionBuilder(CUDAOpBuilder):
             fn.restype = _i
 
 
+class Int8MatmulBuilder(CUDAOpBuilder):
+    NAME = "int8_matmul"
+    SOURCE = os.path.join("quant", "csrc", "int8_matmul.cu")
+
+    def _annotate(self, lib):
+        lib.int8_matmul_fwd.argtypes = [
+            _p, _p, _p, _p,                     # x q scale out
+            _i, _i, _i, _i, _i, _p]             # m k n group dtype stream
+        lib.int8_matmul_fwd.restype = _i
+
+
 ALL_OPS = {b.NAME: b for b in (DecodeAttentionBuilder(),
-                               FlashAttentionBuilder())}
+                               FlashAttentionBuilder(),
+                               Int8MatmulBuilder())}
 
 
 def build_all():

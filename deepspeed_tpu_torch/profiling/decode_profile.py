@@ -2,12 +2,16 @@
 
     python -m deepspeed_tpu_torch.profiling.decode_profile \
         [--layers 32] [--batch 4] [--context 128] [--horizon 8] \
-        [--dtype bfloat16] [--seed 0]
+        [--dtype bfloat16|float32|int8] [--kv-dtype int8|fp8|...] [--seed 0]
 
 Builds Llama-2-7B at full width (``--layers`` cuts depth) with seeded
 random weights, fills ``--batch`` slots of a paged pool to ``--context``
 tokens, and profiles one ``decode_multi`` horizon with ``torch.profiler``
-(CPU + CUDA activities) after a warm-up horizon.  Prints one JSON object:
+(CPU + CUDA activities) after a warm-up horizon.  ``--dtype int8`` serves
+int8 weights with bf16 compute (``int8_matmul_kernel`` then takes the
+GEMMs' place among the kernels); ``--kv-dtype`` defaults to the compute
+dtype (``int8`` / ``fp8`` pools read through the quantized
+``decode_kernel`` instantiations).  Prints one JSON object:
 the host-clock step time of an unprofiled horizon, the device time per
 step summed over the profiled horizon's kernels, the device's busy and
 idle shares of the unprofiled step (the profiler slows the host, not
@@ -34,6 +38,7 @@ def main():
     ap.add_argument("--context", type=int, default=128)
     ap.add_argument("--horizon", type=int, default=8)
     ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--kv-dtype", default=None)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -48,9 +53,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     cfg = llama2_7b(num_layers=args.layers)
+    kv_dtype = args.kv_dtype or \
+        ("bfloat16" if args.dtype == "int8" else args.dtype)
     engine = deepspeed_tpu_torch.init_inference(
         Llama(cfg, device="cuda"), dtype=args.dtype,
-        kv_cache_dtype=args.dtype).init_params(args.seed)
+        kv_cache_dtype=kv_dtype).init_params(args.seed)
     ps = 16
     maxp = -(-(args.context + args.horizon) // ps)
     pools = engine.init_paged_cache(args.batch * maxp, ps)
@@ -80,11 +87,13 @@ def main():
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in engine.module.parameters())
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in (*engine.module.parameters(),
+                                 *engine.module.buffers()))
     print(json.dumps({
         "gpu": smi, "model": "llama2-7b", "layers": args.layers,
-        "dtype": args.dtype, "batch": args.batch, "context": args.context,
+        "dtype": args.dtype, "kv_dtype": kv_dtype, "batch": args.batch,
+        "context": args.context,
         "horizon": args.horizon,
         "step_ms": wall_ms / args.horizon,
         "profiled_step_ms": profiled_ms / args.horizon,

@@ -40,6 +40,7 @@ from collections import deque
 import numpy as np
 
 from deepspeed_tpu_torch.inference.engine import check_greedy
+from deepspeed_tpu_torch.ops.quant.kv import kv_dtype_name
 from deepspeed_tpu_torch.serving.metrics import ServingMetrics
 from deepspeed_tpu_torch.serving.page_manager import (PagedKVManager,
                                                       PagePoolExhausted,
@@ -60,7 +61,6 @@ _UNPORTED = {
     "sampling": "Queue A6 (sampling and grammar policies)",
     "seed": "Queue A6 (sampling and grammar policies)",
     "grammar": "Queue A6 (sampling and grammar policies)",
-    "kv_dtype": "Queue A1 (quantized paged KV)",
     "tenancy": "Queue A10 (tenancy)",
     "tenant": "Queue A10 (tenancy)",
     "adapter": "Queue A10 (tenancy)",
@@ -147,7 +147,7 @@ class ServingScheduler:
                  max_pages_per_slot=None, prefill_chunk=16, max_queue=256,
                  do_sample=False, temperature=1.0,
                  completed_history=4096, decode_horizon_steps=8,
-                 overlap=False, **options):
+                 overlap=False, kv_dtype=None, **options):
         _reject_unported("ServingScheduler", dict(options, overlap=overlap))
         check_greedy(do_sample, temperature)
         if page_size is None:
@@ -160,7 +160,10 @@ class ServingScheduler:
         self.max_queue = int(max_queue)
         self.kv = PagedKVManager(num_pages, page_size, num_slots,
                                  max_pages_per_slot)
-        self.pools = engine.init_paged_cache(num_pages, page_size)
+        # kv_dtype overrides the engine's configured kv_cache_dtype for
+        # THIS scheduler's pools: a float name or "int8" / "fp8"
+        self.pools = engine.init_paged_cache(num_pages, page_size,
+                                             kv_dtype=kv_dtype)
         self.lengths = np.zeros(num_slots, np.int32)
         self.last_tok = np.zeros(num_slots, np.int32)
         self.slot_req = [None] * num_slots
@@ -552,10 +555,25 @@ class ServingScheduler:
         self._wall_s = time.monotonic() - t0
         return results
 
+    @property
+    def kv_dtype_name(self):
+        """The pools' kv dtype, read from the live leaves (what is
+        allocated, not what was configured)."""
+        return kv_dtype_name(self.pools["layers"][0])
+
     def summary(self):
-        """Metrics summary of the last run() plus the pool's peak."""
+        """Metrics summary of the last run() plus the pool's peak, the
+        weight and kv dtypes and the pools' bytes (every leaf, scale
+        leaves and sink pages included)."""
         out = self.metrics.summary(wall_s=self._wall_s)
         out.update(steps=self.step_idx, pool_pages=self.kv.pool.num_pages,
                    pool_peak_pages=self.kv.pool.peak_in_use,
-                   paged_attention=self.engine.paged_kernel_decision())
+                   paged_attention=self.engine.paged_kernel_decision(
+                       pools=self.pools),
+                   kv_dtype=self.kv_dtype_name,
+                   weight_dtype=self.engine.weight_dtype_name,
+                   kv_pool_bytes_total=sum(
+                       t.numel() * t.element_size()
+                       for layer in self.pools["layers"]
+                       for t in layer.values()))
         return out

@@ -119,7 +119,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     tdec.reset_launch_counts()
     args = _paged_inputs(5, 2, 4, 2, 16, 8, 2, 4)
     tdec.paged_decode_attention(*map(torch.from_numpy, args))
-    assert tdec.launch_counts() == {"paged_decode_fwd": 0, "decode_fwd": 0}
+    assert tdec.launch_counts() == {"paged_decode_fwd": 0,
+                                    "paged_decode_quant_fwd": 0,
+                                    "decode_fwd": 0}
     dec = tdec.paged_kernel_decision(device_type="cpu", num_heads=4,
                                      num_kv_heads=2, head_dim=16)
     assert dec["path"] == "reference"

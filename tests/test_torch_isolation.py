@@ -45,7 +45,7 @@ def test_importing_every_module_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 34
+    assert int(r.stdout.split()[-1]) >= 36
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -115,3 +115,42 @@ def test_flash_builder_refuses_without_a_card(monkeypatch):
     assert op_builder.ALL_OPS["flash_attention"].SOURCE == builder.SOURCE
     with pytest.raises(op_builder.OpBuilderError, match="no CUDA device"):
         builder.load()
+
+
+def test_int8_matmul_builder_refuses_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    builder = op_builder.Int8MatmulBuilder()
+    assert os.path.exists(builder.source_path())
+    assert builder.so_path().startswith(os.path.join(REPO, "build"))
+    assert set(op_builder.ALL_OPS) == {"decode_attention", "flash_attention",
+                                       "int8_matmul"}
+    with pytest.raises(op_builder.OpBuilderError, match="no CUDA device"):
+        builder.load()
+
+
+@pytest.mark.parametrize("module", ["ops.quant.quantizer",
+                                    "ops.quant.kernels", "ops.quant.kv",
+                                    "ops.quant.qdense"])
+def test_quant_modules_import_without_jax_triton_or_a_built_library(module):
+    """Importing a quant module on a box with no card touches neither
+    jax, nor the JAX package, nor triton, nor the op builder's library;
+    a CPU call of its kernel wrapper does not either."""
+    code = (
+        "import sys, ctypes\n"
+        "loaded = []\n"
+        "cdll = ctypes.CDLL\n"
+        "ctypes.CDLL = lambda *a, **k: (loaded.append(a), cdll(*a, **k))[1]\n"
+        f"import deepspeed_tpu_torch.{module} as mod\n"
+        "import torch\n"
+        "from deepspeed_tpu_torch.ops.quant import kernels, quantizer\n"
+        "q, s = quantizer.quantize(torch.ones(64, 8), group_size=32)\n"
+        "kernels.int8_matmul(torch.ones(2, 64), q, s)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'deepspeed_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert not [a for a in loaded if 'build' in str(a)], loaded\n"
+        "from deepspeed_tpu_torch.ops import op_builder\n"
+        "assert not op_builder.CUDAOpBuilder._loaded\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

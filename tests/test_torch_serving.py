@@ -184,7 +184,6 @@ def test_unported_scheduler_options_raise(engines, kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kv_cache_dtype="int8"), dict(dtype="int8"),
     dict(mesh={"data": 1, "model": 1}),
     dict(tensor_parallel={"tp_size": 2})])
 def test_unported_config_options_raise(kwargs):
