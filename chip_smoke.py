@@ -33,6 +33,23 @@ Phases, each of which must pass (any failure exits nonzero):
      (e) Llama-2-7B heads, b 1 h 32 l 2048 d 128; each kernel's time,
      the plain versions', SDPA's forward and forward+backward, and the
      bound max(flops / peak, bytes / 3.35 TB/s);
+  4b. block-sparse kernel phase: sparse_fwd and the sparse_bwd_dq /
+     sparse_bwd_dkv pair against their plain versions (o, lse, dq, dk,
+     dv), bf16 and fp32, at b 1 l 4096 h 12 d 64 over six layouts:
+     BigBird and BSLongformer bidirectional (block 128), Fixed
+     unidirectional with a layout per head (4 global patterns), Variable
+     bidirectional with random blocks, Fixed unidirectional at block 32
+     (the fine-bit path), and the dense config, whose outputs must also
+     match the dense flash kernels; each kernel's time, the plain
+     versions', SDPA's with the layout expanded to a boolean mask, and
+     the bound;
+  4c. sparse attention phase, the block-sparse slice at full width:
+     SparseSelfAttention forward and backward at b 1 l 16384 h 12 d 64
+     bf16 (BERT-base / GPT-2-small heads) for BigBird and BSLongformer
+     bidirectional and Fixed unidirectional; two runs must be bit-equal
+     and head 0 must match the plain versions; density, ms forward and
+     forward + backward beside the dense flash kernels, SDPA with the
+     expanded mask, and the bound;
   5. serve phase, fp32: full Llama-2-7B (32 layers, seeded random
      weights) through init_inference + ServingScheduler, more requests
      than slots; every request's greedy tokens must equal its own
@@ -73,7 +90,7 @@ Phases, each of which must pass (any failure exits nonzero):
   9. the launch count of every kernel over its path (decode kernels over
      phases 5-6, the quantized paged kernel and int8_matmul_fwd over
      phases 6b-6c, the grouped instantiations over 6d, flash kernels
-     over phase 8; each must be > 0).
+     over phase 8, block-sparse kernels over phase 4c; each must be > 0).
 
 Each line of output is one JSON object; the last is
 {"ok": true, "device": {...}}.  TF32 is off for matmuls and cuDNN so
@@ -478,6 +495,268 @@ def flash_case(torch, fl, name, b, lq, lk, h, d, causal, dtype, rotations,
            "sdpa_bwd_ms": ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"]}
     emit(out)
     return out
+
+
+def layout_pairs(layout, block, causal, heads):
+    """(query, key) pairs a block layout [H, n, n] lets through over
+    ``heads`` heads; causal layouts are lower-triangular, and their
+    diagonal blocks hold block * (block + 1) / 2 pairs."""
+    diag = int(sum(layout[h].trace() for h in range(layout.shape[0])))
+    full = int(layout.sum()) - (diag if causal else 0)
+    pairs = full * block * block + \
+        (diag * block * (block + 1) // 2 if causal else 0)
+    return pairs * (heads if layout.shape[0] == 1 else 1)
+
+
+def sparse_case(torch, bs, fl, name, cfg, causal, dtype, rotations, seed,
+                b=1, L=4096, h=12, d=64):
+    """One block-sparse layout at [b, L, h, d]: the forward kernel and the
+    backward pair against their plain versions (by :func:`rel_err`), for
+    the dense config against the dense flash kernels too, then kernel /
+    plain / SDPA times and bounds."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.profiling.sparse_profile import sdpa_mask
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dtype_name = str(dtype).replace("torch.", "")
+    layout = np.asarray(cfg.make_layout(L))
+    if causal:
+        layout = np.tril(layout)
+    block = int(cfg.block)
+    index = bs.SparseIndex(layout, block=block)
+    layout_t = torch.as_tensor(layout, device=dev)
+    sets = [tuple(torch.randn(b, L, h, d, generator=g, device=dev).to(dtype)
+                  for _ in range(4)) for _ in range(rotations)]
+    q, k, v, do = sets[0]
+    plain_kw = dict(block=block, causal=causal)
+    o, lse = bs.sparse_fwd(q, k, v, index, causal=causal)
+    o_p, lse_p = bs.sparse_fwd_plain(q, k, v, layout_t, **plain_kw)
+    grads = bs.sparse_bwd(q, k, v, o_p, lse_p, do, index, causal=causal)
+    grads_p = bs.sparse_bwd_plain(q, k, v, o_p, lse_p, do, layout_t,
+                                  **plain_kw)
+    torch.cuda.synchronize()
+    label = f"sparse {name} {dtype_name}"
+    live = lse_p > fl.NEG_INF / 2
+    if not torch.equal(lse[~live], lse_p[~live]):
+        fail(f"{label}: rows with no active key must give lse = NEG_INF")
+    pairs = {"o": (o, o_p), "lse": (lse[live], lse_p[live]),
+             **dict(zip(("dq", "dk", "dv"), zip(grads, grads_p)))}
+    errs = {k_: rel_err(*t) for k_, t in pairs.items()}
+    abs_errs = {k_: (t[0].float() - t[1].float()).abs().max().item()
+                for k_, t in pairs.items()}
+    bad = {k_: e for k_, e in errs.items() if not e < TOL[dtype_name]}
+    if bad:
+        fail(f"{label}: kernel vs plain error {bad} >= {TOL[dtype_name]}")
+    out = {"phase": "sparse_kernel", "case": name, "config": type(cfg).__name__,
+           "dtype": dtype_name, "batch": b, "len": L, "heads": h,
+           "head_dim": d, "block": block, "causal": causal,
+           "layout_heads": int(layout.shape[0]),
+           "density": float(layout.mean()), "index_tile": index.tile,
+           "max_rel_err": errs, "max_abs_err": abs_errs,
+           "tol": TOL[dtype_name]}
+    if name == "dense":
+        o_f, lse_f = fl.flash_fwd(q, k, v, causal=causal)
+        grads_f = fl.flash_bwd(q, k, v, o_p, lse_p, do, causal=causal)
+        torch.cuda.synchronize()
+        vs = {"o": (o, o_f), "lse": (lse, lse_f),
+              **dict(zip(("dq", "dk", "dv"), zip(grads, grads_f)))}
+        out["vs_dense_flash_rel_err"] = {k_: rel_err(*t)
+                                         for k_, t in vs.items()}
+        out["vs_dense_flash_bit_equal"] = all(torch.equal(*t)
+                                              for t in vs.values())
+        bad = {k_: e for k_, e in out["vs_dense_flash_rel_err"].items()
+               if not e < TOL[dtype_name]}
+        if bad:
+            fail(f"{label}: the dense config disagrees with the dense flash "
+                 f"kernels: {bad}")
+
+    bwd_in = []
+    for q_, k_, v_, do_ in sets:
+        o_, lse_ = bs.sparse_fwd(q_, k_, v_, index, causal=causal)
+        bwd_in.append((fl._bwd_inputs(q_, k_, v_, o_, lse_, do_, None),
+                       (q_, k_, v_, o_, lse_, do_)))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ms = {
+        "fwd": time_ms(torch, [
+            lambda s=s: bs.sparse_fwd(*s[:3], index, causal=causal)
+            for s in sets]),
+        "bwd_dq": time_ms(torch, [
+            lambda a=a: bs._launch("sparse_bwd_dq", index, a[0], (dq,),
+                                   causal, None) for a in bwd_in]),
+        "bwd_dkv": time_ms(torch, [
+            lambda a=a: bs._launch("sparse_bwd_dkv", index, a[0], (dk, dv),
+                                   causal, None) for a in bwd_in]),
+        "bwd": time_ms(torch, [
+            lambda a=a: bs.sparse_bwd(*a[1], index, causal=causal)
+            for a in bwd_in]),
+        "plain_fwd": time_ms(torch, [
+            lambda s=s: bs.sparse_fwd_plain(*s[:3], layout_t, **plain_kw)
+            for s in sets]),
+        "plain_bwd": time_ms(torch, [
+            lambda a=a: bs.sparse_bwd_plain(*a[1], layout_t, **plain_kw)
+            for a in bwd_in]),
+    }
+    # SDPA with the layout expanded to a boolean mask, timed here only
+    mask = sdpa_mask(layout_t, block, L, h, causal, dev)
+    ms["sdpa_fwd"] = time_ms(torch, [
+        lambda s=s: F.scaled_dot_product_attention(*sdpa_inputs(*s[:3]),
+                                                   attn_mask=mask)
+        for s in sets])
+    leaves = [x.detach().clone().requires_grad_() for x in sets[0][:3]]
+    do_t = sets[0][3].transpose(1, 2)
+    ms["sdpa_fwd_bwd"] = time_ms(torch, [
+        lambda: F.scaled_dot_product_attention(
+            *sdpa_inputs(*leaves), attn_mask=mask).backward(do_t)])
+    del mask
+
+    n_pairs = b * layout_pairs(layout, block, causal, h)
+    item = q.element_size()
+    rows, stats = b * L * h * d, b * h * L * 4
+    bound = {
+        "fwd": bound_ms(4 * rows * item + stats, 4 * n_pairs * d,
+                        dtype_name),
+        "bwd_dq": bound_ms(5 * rows * item + 2 * stats, 6 * n_pairs * d,
+                           dtype_name),
+        "bwd_dkv": bound_ms(6 * rows * item + 2 * stats, 8 * n_pairs * d,
+                            dtype_name),
+        "bwd": bound_ms(7 * rows * item + 2 * stats, 10 * n_pairs * d,
+                        dtype_name)}
+    out.update({"pairs": n_pairs, "ms": ms,
+                "bound_ms": {k_: v_[0] for k_, v_ in bound.items()},
+                "bound_by": {k_: v_[1] for k_, v_ in bound.items()},
+                "sdpa_bwd_ms": ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"]})
+    emit(out)
+    return out
+
+
+def sparse_kernel_configs(sa, h=12):
+    """Phase 4b's layouts: (name, config, causal)."""
+    return [
+        ("bigbird", sa.BigBirdSparsityConfig(
+            h, block=128, num_random_blocks=1, num_sliding_window_blocks=3,
+            num_global_blocks=1), False),
+        ("bslongformer", sa.BSLongformerSparsityConfig(
+            h, block=128, num_sliding_window_blocks=3,
+            global_block_indices=[0]), False),
+        ("fixed_per_head", sa.FixedSparsityConfig(
+            h, block=128, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional", different_layout_per_head=True,
+            num_different_global_patterns=4), True),
+        ("variable", sa.VariableSparsityConfig(
+            h, block=128, num_random_blocks=2, local_window_blocks=[4],
+            global_block_indices=[0]), False),
+        ("fixed_block32", sa.FixedSparsityConfig(
+            h, block=32, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional"), True),
+        ("dense", sa.DenseSparsityConfig(h, block=128), False),
+    ]
+
+
+def sparse_attention_phase(torch, sa, bs, fl, seed, L=16384, h=12, d=64):
+    """Phase 4c: SparseSelfAttention forward and backward at [1, L, h, d]
+    bf16 for three configs.  Returns the block-sparse launch counts of
+    the two driven runs of each config (the timing runs come after)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.profiling.sparse_profile import (sdpa_mask,
+                                                              timings)
+    dev = torch.device("cuda")
+    configs = [
+        ("bigbird", sa.BigBirdSparsityConfig(
+            h, block=128, num_random_blocks=1, num_sliding_window_blocks=3,
+            num_global_blocks=1)),
+        ("bslongformer", sa.BSLongformerSparsityConfig(
+            h, block=128, num_sliding_window_blocks=3,
+            global_block_indices=[0])),
+        ("fixed_unidirectional", sa.FixedSparsityConfig(
+            h, block=128, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional")),
+    ]
+    counts = dict.fromkeys(bs.launch_counts(), 0)
+    for i, (name, cfg) in enumerate(configs):
+        module = sa.SparseSelfAttention(cfg)
+        causal = cfg.attention == "unidirectional"
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        q, k, v, do = (torch.randn(1, L, h, d, generator=g,
+                                   device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        bs.reset_launch_counts()
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                o = module(q, k, v)
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            module(*leaves).backward(do)
+            runs.append([o] + [t.grad for t in leaves])
+        torch.cuda.synchronize()
+        for key_, n in bs.launch_counts().items():
+            counts[key_] += n
+        bit_equal = all(torch.equal(a, b_) for a, b_ in zip(*runs))
+        finite = all(bool(torch.isfinite(t).all()) for t in runs[0])
+        shapes = [tuple(t.shape) for t in runs[0]]
+
+        # head 0 against the plain versions (the loss is a sum over heads,
+        # so head 0's gradients depend on head 0 alone)
+        layout = np.asarray(cfg.make_layout(L))
+        if causal:
+            layout = np.tril(layout)
+        h0 = [x[:, :, :1] for x in (q, k, v, do)]
+        o_p, lse_p = bs.sparse_fwd_plain(*h0[:3], layout, block=128,
+                                         causal=causal)
+        grads_p = bs.sparse_bwd_plain(*h0[:3], o_p, lse_p, h0[3], layout,
+                                      block=128, causal=causal)
+        errs = {lbl: rel_err(got[:, :, :1], want) for lbl, got, want in zip(
+            ("o", "dq", "dk", "dv"), runs[0], (o_p, *grads_p))}
+        del o_p, lse_p, grads_p, runs
+
+        # times from CUDA events (the host enqueues far ahead of these
+        # ms-long kernels); SDPA with the expanded mask is timed only here
+        mask = sdpa_mask(layout, 128, L, h, causal, dev)
+        ms = {}
+        for label, attend in (
+                ("sparse", module),
+                ("dense_flash",
+                 lambda *t: fl.flash_attention(*t, causal=causal)),
+                ("sdpa_mask", lambda *t: F.scaled_dot_product_attention(
+                    *sdpa_inputs(*t), attn_mask=mask).transpose(1, 2))):
+            got = timings(attend, q, k, v, do, reps=3, backward=True)
+            ms[f"{label}_fwd"], ms[f"{label}_fwd_bwd"] = \
+                got["fwd"], got["fwd_bwd"]
+        del mask
+        torch.cuda.empty_cache()
+
+        n_pairs = layout_pairs(layout, 128, causal, h)
+        dense_pairs = h * attended_pairs(L, L, causal)
+        rows, stats = L * h * d * 2, h * L * 4
+        res = {"phase": "sparse_attention", "config": name,
+               "sparsity_config": type(cfg).__name__, "batch": 1, "len": L,
+               "heads": h, "head_dim": d, "dtype": "bfloat16",
+               "causal": causal, "block": 128,
+               "density": float(layout.mean()), "pairs": n_pairs,
+               "ms": ms,
+               "bound_fwd_ms": bound_ms(4 * rows + stats, 4 * n_pairs * d,
+                                        "bfloat16")[0],
+               "bound_fwd_bwd_ms": bound_ms(
+                   8 * rows + 2 * stats, 14 * n_pairs * d, "bfloat16")[0],
+               "dense_bound_fwd_ms": bound_ms(
+                   4 * rows + stats, 4 * dense_pairs * d, "bfloat16")[0],
+               "speedup_fwd_vs_dense_flash":
+                   ms["dense_flash_fwd"] / ms["sparse_fwd"],
+               "speedup_fwd_bwd_vs_dense_flash":
+                   ms["dense_flash_fwd_bwd"] / ms["sparse_fwd_bwd"],
+               "two_runs_bit_equal": bit_equal, "finite": finite,
+               "shapes": shapes, "head0_vs_plain_rel_err": errs,
+               "tol": TOL["bfloat16"]}
+        emit(res)
+        if not (bit_equal and finite and
+                shapes == [(1, L, h, d)] * 4 and
+                all(e < TOL["bfloat16"] for e in errs.values())):
+            fail(f"sparse attention {name}: bit-equal {bit_equal}, finite "
+                 f"{finite}, shapes {shapes}, head 0 vs plain {errs}")
+    return counts
 
 
 # ------------------------------------------------------------- train phase
@@ -993,6 +1272,20 @@ def main():
                 rotations=2, seed=10 + ord(name[0]))
             torch.cuda.empty_cache()
 
+    # ---- block-sparse kernel phase, then the block-sparse slice
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.attention import block_sparse as bs
+    sparse_results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for i, (name, cfg, causal) in enumerate(sparse_kernel_configs(sa)):
+            sparse_results[(name, dn)] = sparse_case(
+                torch, bs, fl, name, cfg, causal, dtype, rotations=2,
+                seed=40 + i)
+            torch.cuda.empty_cache()
+    sparse_counts = sparse_attention_phase(torch, sa, bs, fl, args.seed)
+    torch.cuda.empty_cache()
+
     # ---- serve phase, fp32 (the token-exact oracle run)
     dec.reset_launch_counts()
     t0 = time.monotonic()
@@ -1157,12 +1450,34 @@ def main():
             **extra})
         if not fwd:
             kernels[-1]["plain_and_library_cover"] = "dq, dk and dv"
+    # the block-sparse kernels at BigBird bidirectional, block 128, bf16,
+    # b 1 l 4096 h 12 d 64 (phase 4b); launches over phase 4c
+    r = sparse_results[("bigbird", "bfloat16")]
+    source = "deepspeed_tpu_torch/ops/attention/csrc/block_sparse.cu"
+    for name, key, errs, replaces in (
+            ("sparse_fwd", "fwd", ("o", "lse"),
+             "deepspeed_tpu/ops/attention/block_sparse.py:203"),
+            ("sparse_bwd_dq", "bwd_dq", ("dq",),
+             "deepspeed_tpu/ops/attention/block_sparse.py:338"),
+            ("sparse_bwd_dkv", "bwd_dkv", ("dk", "dv"),
+             "deepspeed_tpu/ops/attention/block_sparse.py:365")):
+        fwd = key == "fwd"
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sparse_counts[name],
+            "max_abs_err": max(r["max_abs_err"][e] for e in errs),
+            "ms": r["ms"][key],
+            "plain_ms": r["ms"]["plain_fwd" if fwd else "plain_bwd"],
+            "bound_ms": r["bound_ms"][key], "bound_by": r["bound_by"][key],
+            "library_ms": r["ms"]["sdpa_fwd"] if fwd else r["sdpa_bwd_ms"]})
+        if not fwd:
+            kernels[-1]["plain_and_library_cover"] = "dq, dk and dv"
     emit({"kernels": kernels})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if grouped_float <= 0:
         missing.append("paged_decode_fwd (group 8)")
     if missing:
-        fail(f"kernels never launched on the serve and train paths: "
+        fail(f"kernels never launched on their main paths: "
              f"{missing}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -54,9 +54,12 @@ def _scale(scale, d):
     return float(scale) if scale is not None else 1.0 / (d ** 0.5)
 
 
-def _scores(q, k, causal, scale):
-    """fp32 [b, h, lq, lk] scores with the causal mask applied."""
+def _scores(q, k, causal, scale, mask=None):
+    """fp32 [b, h, lq, lk] scores with the boolean ``mask`` (broadcast to
+    them; False = masked) and then the causal mask applied."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
     if causal:
         lq, lk = q.shape[1], k.shape[1]
         qi = torch.arange(lq, device=q.device)[:, None]
@@ -77,11 +80,12 @@ def _delta(o, do, dlse):
 # ------------------------------------------------------------ plain versions
 
 
-def flash_fwd_plain(q, k, v, *, causal=True, scale=None):
+def flash_fwd_plain(q, k, v, *, causal=True, scale=None, mask=None):
     """Plain version of :func:`flash_fwd`: (o [b, lq, h, d] in q's dtype,
-    lse [b, h, lq] fp32)."""
+    lse [b, h, lq] fp32).  ``mask``: an optional boolean score mask
+    broadcast to [b, h, lq, lk] (the block-sparse plain versions')."""
     scale = _scale(scale, q.shape[-1])
-    s = _scores(q, k, causal, scale)
+    s = _scores(q, k, causal, scale, mask)
     m = s.amax(-1, keepdim=True)
     live = m > NEG_INF / 2
     p = torch.where(live, torch.exp(s - m), 0.0)
@@ -93,11 +97,12 @@ def flash_fwd_plain(q, k, v, *, causal=True, scale=None):
 
 
 def flash_bwd_plain(q, k, v, o, lse, do, dlse=None, *, causal=True,
-                    scale=None):
+                    scale=None, mask=None):
     """Plain version of :func:`flash_bwd`: (dq, dk, dv) in the input
-    dtypes, recomputing p from ``lse`` (``_bwd_p_ds``, ``flash.py:98``)."""
+    dtypes, recomputing p from ``lse`` (``_bwd_p_ds``, ``flash.py:98``)
+    under the same optional ``mask`` as :func:`flash_fwd_plain`."""
     scale = _scale(scale, q.shape[-1])
-    s = _scores(q, k, causal, scale)
+    s = _scores(q, k, causal, scale, mask)
     lse = lse.float()[..., None]
     p = torch.where(lse > NEG_INF / 2, torch.exp(s - lse), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
@@ -177,18 +182,18 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
     return o, lse
 
 
-def _bwd_inputs(q, k, v, o, lse, do, dlse):
+def _bwd_inputs(q, k, v, o, lse, do, dlse, name="flash_bwd"):
     """The backward kernels' checked inputs: (q, k, v, do) with unit
     head-dim strides, lse and the delta pre-pass ``sum(do * o) - dlse``
     as contiguous fp32 [b, h, lq] (plain tensor code, as in the JAX
     package)."""
-    _check_cuda("flash_bwd", q, k, v, o, do)
+    _check_cuda(name, q, k, v, o, do)
     q, k, v, do = _rows(q), _rows(k), _rows(v), _rows(do)
     b, lq, h, _ = q.shape
     lse = lse.float().contiguous()
     delta = _delta(o, do, dlse)
     if lse.shape != (b, h, lq) or delta.shape != (b, h, lq):
-        raise ValueError(f"flash_bwd: lse {tuple(lse.shape)} / delta "
+        raise ValueError(f"{name}: lse {tuple(lse.shape)} / delta "
                          f"{tuple(delta.shape)} must be [{b}, {h}, {lq}]")
     return q, k, v, do, lse, delta
 
@@ -276,12 +281,15 @@ def flash_attention(q, k, v, *, causal=True, scale=None, with_lse=False,
                     sparsity_config=None):
     """Flash attention on ``[batch, len, heads, head_dim]`` inputs
     (``flash.py:558``): returns o, or (o, lse [b, h, q_len]) with
-    ``with_lse``; differentiable in both."""
+    ``with_lse``; differentiable in both.  ``sparsity_config``
+    (``ops/sparse_attention``) routes to the block-sparse kernels
+    (``block_sparse.sparse_flash_attention``), which return o alone."""
     if sparsity_config is not None:
-        raise NotImplementedError(
-            "block-sparse attention (sparsity_config) is not ported to the "
-            "PyTorch package yet: see ROADMAP.md Queue A10 (Queue B rows "
-            "9-11)")
+        assert not with_lse, "with_lse is not supported on the sparse path"
+        from deepspeed_tpu_torch.ops.attention.block_sparse import \
+            sparse_flash_attention
+        return sparse_flash_attention(q, k, v, sparsity_config,
+                                      causal=causal, scale=scale)
     o, lse = FlashAttentionFn.apply(q, k, v, bool(causal), scale)
     return (o, lse) if with_lse else o
 

@@ -5,14 +5,16 @@ Counterpart of ``deepspeed_tpu/ops/op_builder/__init__.py`` (the g++ +
 ctypes builder for the host ops): each source has a plain C interface,
 so no PyTorch header is compiled and a build takes seconds.  Libraries
 land in ``build/`` at the repository root (listed in ``.gitignore``),
-named ``<op>_<hash>.so`` so an edited source rebuilds.  There is no
-fallback: without a CUDA device or without ``nvcc``, :meth:`load`
-raises :class:`OpBuilderError`.
+named ``<op>_<hash>.so``, the hash over the flags, the source and every
+header it includes with quotes, so an edited source or shared header
+rebuilds.  There is no fallback: without a CUDA device or without
+``nvcc``, :meth:`load` raises :class:`OpBuilderError`.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -20,6 +22,9 @@ _PKG = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 class OpBuilderError(RuntimeError):
@@ -45,10 +50,25 @@ class CUDAOpBuilder:
     def source_path(self):
         return os.path.join(_PKG, self.SOURCE)
 
+    def build_inputs(self):
+        """The source, then every file it includes with quotes (``#include
+        "x.cuh"``, resolved beside the including file), transitively."""
+        out, todo = [], [self.source_path()]
+        while todo:
+            path = todo.pop(0)
+            if path in out:
+                continue
+            out.append(path)
+            with open(path) as f:
+                todo += [os.path.join(os.path.dirname(path), name)
+                         for name in _INCLUDE.findall(f.read())]
+        return out
+
     def so_path(self):
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        with open(self.source_path(), "rb") as f:
-            h.update(f.read())
+        for path in self.build_inputs():
+            with open(path, "rb") as f:
+                h.update(f.read())
         return os.path.join(BUILD_DIR, f"{self.NAME}_{h.hexdigest()[:16]}.so")
 
     def _check_toolchain(self):
@@ -147,6 +167,22 @@ class FlashAttentionBuilder(CUDAOpBuilder):
             fn.restype = _i
 
 
+class BlockSparseAttentionBuilder(CUDAOpBuilder):
+    NAME = "block_sparse_attention"
+    SOURCE = os.path.join("attention", "csrc", "block_sparse.cu")
+
+    def _annotate(self, lib):
+        tail = [_p, _p, _p, _p, _p,     # strides row_ptr cols fmask order
+                _i, _i, _i, _i, _i,     # b h len d layout_heads
+                _i, _i, _i, _i,         # n_rows tile fine causal
+                _f, _i, _p]             # scale dtype stream
+        lib.sparse_fwd.argtypes = [_p] * 5 + tail     # q k v o lse
+        lib.sparse_bwd_dq.argtypes = [_p] * 7 + tail  # q k v do lse delta dq
+        lib.sparse_bwd_dkv.argtypes = [_p] * 8 + tail  # ... dk dv
+        for fn in (lib.sparse_fwd, lib.sparse_bwd_dq, lib.sparse_bwd_dkv):
+            fn.restype = _i
+
+
 class Int8MatmulBuilder(CUDAOpBuilder):
     NAME = "int8_matmul"
     SOURCE = os.path.join("quant", "csrc", "int8_matmul.cu")
@@ -160,6 +196,7 @@ class Int8MatmulBuilder(CUDAOpBuilder):
 
 ALL_OPS = {b.NAME: b for b in (DecodeAttentionBuilder(),
                                FlashAttentionBuilder(),
+                               BlockSparseAttentionBuilder(),
                                Int8MatmulBuilder())}
 
 

@@ -156,12 +156,6 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                                       "flash_bwd_dkv": 0}
 
 
-def test_sparsity_config_names_its_roadmap_item():
-    q = torch.zeros(1, 8, 1, 16)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tflash.flash_attention(q, q, q, sparsity_config=object())
-
-
 # ------------------------------------------------------------ on the card
 
 

@@ -123,9 +123,77 @@ def test_int8_matmul_builder_refuses_without_a_card(monkeypatch):
     assert os.path.exists(builder.source_path())
     assert builder.so_path().startswith(os.path.join(REPO, "build"))
     assert set(op_builder.ALL_OPS) == {"decode_attention", "flash_attention",
+                                       "block_sparse_attention",
                                        "int8_matmul"}
     with pytest.raises(op_builder.OpBuilderError, match="no CUDA device"):
         builder.load()
+
+
+def test_block_sparse_builder_refuses_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    builder = op_builder.BlockSparseAttentionBuilder()
+    assert os.path.exists(builder.source_path())
+    assert builder.so_path().startswith(os.path.join(REPO, "build"))
+    assert op_builder.ALL_OPS["block_sparse_attention"].SOURCE == \
+        builder.SOURCE
+    with pytest.raises(op_builder.OpBuilderError, match="no CUDA device"):
+        builder.load()
+
+
+def test_so_path_hashes_every_file_the_build_reads(tmp_path):
+    """An edit to the source or to any header it includes with quotes
+    (transitively) names another library, so it is rebuilt."""
+    (tmp_path / "inc").mkdir()
+    files = {"op.cu": '#include "inc/a.cuh"\n#include <cuda_runtime.h>\n',
+             "inc/a.cuh": '#pragma once\n#include "b.cuh"\n',
+             "inc/b.cuh": "// b\n"}
+    for name, text in files.items():
+        (tmp_path / name).write_text(text)
+
+    class Builder(op_builder.CUDAOpBuilder):
+        NAME = "probe"
+        SOURCE = str(tmp_path / "op.cu")
+
+    builder = Builder()
+    assert builder.build_inputs() == [str(tmp_path / n) for n in files]
+    seen = {builder.so_path()}
+    for name in files:
+        (tmp_path / name).write_text(files[name] + "// edited\n")
+        seen.add(builder.so_path())
+    assert len(seen) == 1 + len(files)
+    for b in (op_builder.FlashAttentionBuilder(),
+              op_builder.BlockSparseAttentionBuilder()):
+        assert [os.path.basename(f) for f in b.build_inputs()][1:] == \
+            ["flash_kernels.cuh"]
+
+
+@pytest.mark.parametrize("module", ["ops.attention.block_sparse",
+                                    "ops.sparse_attention",
+                                    "ops.sparse_attention.sparsity_config"])
+def test_sparse_modules_import_without_jax_or_a_built_library(module):
+    """Importing a block-sparse module, and a CPU forward and backward
+    through it, touch neither jax, nor the JAX package, nor the op
+    builder's library."""
+    code = (
+        "import sys, ctypes\n"
+        "loaded = []\n"
+        "cdll = ctypes.CDLL\n"
+        "ctypes.CDLL = lambda *a, **k: (loaded.append(a), cdll(*a, **k))[1]\n"
+        f"import deepspeed_tpu_torch.{module} as mod\n"
+        "import torch\n"
+        "from deepspeed_tpu_torch.ops import sparse_attention as sa\n"
+        "q = torch.randn(1, 128, 2, 32, requires_grad=True)\n"
+        "cfg = sa.BigBirdSparsityConfig(2, block=32)\n"
+        "sa.SparseSelfAttention(cfg)(q, q, q).sum().backward()\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'deepspeed_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert not [a for a in loaded if 'build' in str(a)], loaded\n"
+        "from deepspeed_tpu_torch.ops import op_builder\n"
+        "assert not op_builder.CUDAOpBuilder._loaded\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 @pytest.mark.parametrize("module", ["ops.quant.quantizer",
