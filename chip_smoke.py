@@ -14,10 +14,13 @@ Phases, each of which must pass (any failure exits nonzero):
   3. decode kernel phase: each decode kernel against its plain PyTorch
      version on the card, fp32 and bf16, at the serving path's shapes
      (Llama-2-7B heads, a 128-bucketed dense cache, and GQA at
-     Llama-2-70B head widths), with its time, the plain version's,
-     SDPA's over the same (gathered) K/V, and the bandwidth bound; the
-     paged shapes again over int8 and fp8 pools (paged_decode_quant_fwd;
-     SDPA then runs on the gathered, dequantized buffers);
+     Llama-2-70B head widths), and at 32 slots x ~1024 keys for 7B heads,
+     70B heads and Falcon-7B's MQA heads (71 over 1 kv head, d 64), with
+     its time, the plain version's, SDPA's over the same (gathered) K/V,
+     the bandwidth bound and the kernel's share of it; the paged shapes
+     again over int8 and fp8 pools (paged_decode_quant_fwd; SDPA then
+     runs on the gathered, dequantized buffers); ptxas's registers and
+     spills of the paged kernel instantiations;
   3b. int8_matmul kernel phase: int8_matmul_fwd against its plain
      version at the Llama-2-7B projection shapes, m = 4 (decode), 64
      (prefill chunk) and 1, group 64, bf16 and fp32, with its time, the
@@ -260,7 +263,7 @@ def paged_case(torch, dec, name, h, kv_h, d, ps, positions, dtype,
            "head_dim": d, "page_size": ps, "positions": list(positions),
            "max_abs_err": err, "tol": TOL[dtype_name], "kernel_ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": n_bytes}
+           "bound_by": b_by, "bound_share": b_ms / ms, "bytes": n_bytes}
     emit(out)
     return out
 
@@ -1213,9 +1216,17 @@ def main():
     ptxas = ptxas_usage(logs)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "ops": sorted(logs), "ptxas": ptxas})
+    emit({"phase": "ptxas_paged_decode",
+          "instantiations": [e for e in ptxas
+                             if "paged_decode_kernel" in e["kernel"]]})
 
     # ---- kernel phase: the serving path's shapes
     serve_pos = [0, 7, 100, 231]          # ragged: 0, mid-page, 200+ tokens
+    long_pos = [1023 - 29 * i for i in range(32)]    # 32 slots x ~1024
+    long_cases = (("llama2-7b 32 slots x 1024", 32, 32, 128),
+                  ("llama2-70b heads (GQA 64/8) 32 slots x 1024", 64, 8,
+                   128),
+                  ("falcon-7b heads (MQA 71/1) 32 slots x 1024", 71, 1, 64))
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
@@ -1224,9 +1235,9 @@ def main():
             dtype, rotations=8, seed=1)
         paged_case(torch, dec, "llama2-70b heads (GQA 64/8)", 64, 8, 128,
                    16, serve_pos, dtype, rotations=8, seed=2)
-        paged_case(torch, dec, "llama2-7b 32 slots x 1024", 32, 32, 128, 16,
-                   [1023 - 29 * i for i in range(32)], dtype, rotations=2,
-                   seed=3)
+        for i, (name, h, kv_h, d) in enumerate(long_cases):
+            paged_case(torch, dec, name, h, kv_h, d, 16, long_pos, dtype,
+                       rotations=2, seed=3 + 10 * i)
         results[("dense", dn)] = dense_case(
             torch, dec, "llama2-7b generate cache", 1, 32, 32, 128, 256,
             [215], dtype, rotations=8, seed=4)
@@ -1240,9 +1251,10 @@ def main():
             results[("paged_quant_gqa", kv_name, dn)] = paged_case(
                 torch, dec, "llama2-70b heads (GQA 64/8)", 64, 8, 128, 16,
                 serve_pos, dtype, rotations=8, seed=2, kv_name=kv_name)
-            paged_case(torch, dec, "llama2-7b 32 slots x 1024", 32, 32, 128,
-                       16, [1023 - 29 * i for i in range(32)], dtype,
-                       rotations=2, seed=3, kv_name=kv_name)
+            for i, (name, h, kv_h, d) in enumerate(long_cases):
+                paged_case(torch, dec, name, h, kv_h, d, 16, long_pos,
+                           dtype, rotations=2, seed=3 + 10 * i,
+                           kv_name=kv_name)
     torch.cuda.empty_cache()
 
     # ---- int8_matmul kernel phase: the Llama-2-7B projections

@@ -3,11 +3,15 @@
 
 Three hand-written CUDA kernels for Hopper live in
 ``csrc/decode_attention.cu`` (its header note names the TPU kernels they
-replace, their bound and the design): ``paged_decode_fwd`` (paged MHA
-and GQA in one kernel), ``paged_decode_quant_fwd`` (the same over int8 /
-fp8 pools with per-row scale pools, dequantized in registers) and
-``decode_fwd`` (dense cache + additive bias).  Each public function here
-has a plain PyTorch version beside it.
+replace, their bound and the design): ``paged_decode_fwd`` (paged MHA,
+GQA and MQA in one kernel, any group), ``paged_decode_quant_fwd`` (the
+same over int8 / fp8 pools with per-row scale pools, dequantized in
+shared memory) and ``decode_fwd`` (dense cache + additive bias).  The
+paged kernels split each slot's keys into splits of whole pages
+(:func:`pages_per_split`) walked by blocks of their own and merged in
+split order inside the same launch (the splits of a slot are one thread
+block cluster).  Each public function here has a plain PyTorch version
+beside it.
 
 The dispatch rule is the tensor's device: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises — there is no
@@ -29,9 +33,10 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_STORAGE = {torch.int8: 1}          # + float8_e4m3fn: 2, where built
 if hasattr(torch, "float8_e4m3fn"):
     _QUANT_STORAGE[torch.float8_e4m3fn] = 2
-MAX_GROUP = 16
-MAX_GROUP_QUANT = 8   # 16 accumulators per query head fill the registers
 MAX_HEAD_DIM = 256
+DENSE_MAX_GROUP = 16   # decode_fwd keeps one accumulator row per head
+SPLIT_KEYS = 64        # keys per split of the paged kernels, at least
+MAX_SPLITS = 4         # splits of a slot: one thread block cluster
 
 
 def launch_counts():
@@ -42,6 +47,16 @@ def launch_counts():
 def reset_launch_counts():
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def pages_per_split(page_size, max_pages):
+    """Pages per split of the paged kernels: the fewest whole pages that
+    hold :data:`SPLIT_KEYS` keys, more where the page table's width
+    (``max_pages``) would otherwise give over :data:`MAX_SPLITS` splits
+    (a slot's splits merge inside one thread block cluster).  It depends
+    on the page size and the table's width, never on the batch or the
+    positions, so a slot's output bits do not depend on the batch."""
+    return max(-(-SPLIT_KEYS // page_size), -(-max_pages // MAX_SPLITS))
 
 
 def _lib():
@@ -76,7 +91,8 @@ def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
     and dtypes fit, and is otherwise refused (``"unsupported"`` — the
     caller raises; it never falls back).  ``dtype`` is the compute dtype
     (the query's); ``storage_dtype`` the pools' payload dtype when it
-    differs (int8 / float8_e4m3fn of a quantized pool).  The kernels
+    differs (int8 / float8_e4m3fn of a quantized pool).  Every group
+    (``num_heads / num_kv_heads``, MQA included) runs.  The kernels
     load 16 bytes per thread, so ``head_dim`` must be a whole number of
     16-byte loads of the STORAGE dtype: a multiple of 8 for 2- and
     4-byte elements, of 16 for a 1-byte payload."""
@@ -88,7 +104,6 @@ def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
                 "reason": f"no decode kernel for device {device_type!r}"}
     group = num_heads // num_kv_heads if num_kv_heads else 0
     quantized = storage_dtype is not None and storage_dtype != dtype
-    max_group = MAX_GROUP_QUANT if quantized else MAX_GROUP
     # elements in one 16-byte load of the stored type
     per_load = 16 if quantized else 8
     if not num_kv_heads or num_heads % num_kv_heads:
@@ -97,9 +112,6 @@ def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
     elif quantized and storage_dtype not in _QUANT_STORAGE:
         reason = (f"storage dtype {storage_dtype} (quantized pools hold "
                   "int8 or float8_e4m3fn)")
-    elif group > max_group:
-        reason = (f"group {group} > {max_group} query heads per kv head"
-                  + (" over a quantized pool" if quantized else ""))
     elif head_dim % per_load or head_dim > MAX_HEAD_DIM:
         reason = (f"head_dim={head_dim} must be a multiple of {per_load} "
                   + ("(16-byte loads of a 1-byte payload) " if quantized
@@ -173,7 +185,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
     kv_heads, 1] f32) mark a QUANTIZED pool (int8 / fp8 payload,
     ``ops/quant/kv.py``): a CUDA tensor then launches
     ``paged_decode_quant_fwd``, which dequantizes to ``q.dtype`` in
-    registers.  Returns [slots, 1, heads, d]."""
+    shared memory.  Returns [slots, 1, heads, d]."""
     slots, l, h, d = q.shape
     if l != 1:
         raise ValueError(f"paged decode takes one query token, got {l}")
@@ -207,6 +219,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
                          f"{tuple(v_pages.shape)} table "
                          f"{tuple(page_table.shape)} positions "
                          f"{tuple(positions.shape)}")
+    if num_pages * page_size >= 2 ** 31:
+        raise ValueError("paged_decode_attention: the kernels index pool "
+                         "rows with int32: num_pages * page_size must be "
+                         f"below 2**31, got {num_pages} x {page_size}")
     for t in scales:
         if t.shape != (num_pages, page_size, kv_h, 1) or \
                 t.dtype != torch.float32:
@@ -217,8 +233,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
     if slots == 0:
         return out
     scale = float(scale) if scale is not None else 1.0 / (d ** 0.5)
-    shape_args = (slots, kv_h, h // kv_h, d, page_size, page_table.shape[1],
-                  scale, _KERNEL_DTYPES[q.dtype])
+    max_pages = page_table.shape[1]
+    shape_args = (slots, kv_h, h // kv_h, d, page_size, max_pages,
+                  pages_per_split(page_size, max_pages), scale,
+                  _KERNEL_DTYPES[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if quantized:
         name = "paged_decode_quant_fwd"
@@ -271,6 +289,10 @@ def decode_attention(q, k_cache, v_cache, *, bias, scale=None):
         head_dim=d, dtype=q.dtype)
     if decision["path"] != "kernel":
         raise ValueError(decision["reason"])
+    if h // kv_h > DENSE_MAX_GROUP:
+        raise ValueError(f"decode_attention: the dense kernel takes groups "
+                         f"of at most {DENSE_MAX_GROUP} query heads per kv "
+                         f"head, got {h // kv_h}")
     bias = bias.to(torch.float32).expand(b, h, 1, max_len)
     _check_cuda("decode_attention", q, k_cache, v_cache)
     if k_cache.dtype != q.dtype:

@@ -136,13 +136,15 @@ class DecodeAttentionBuilder(CUDAOpBuilder):
     def _annotate(self, lib):
         lib.paged_decode_fwd.argtypes = [
             _p, _p, _p, _p, _p, _p,             # q k v out table positions
-            _i, _i, _i, _i, _i, _i,             # slots kv_h group d ps maxp
+            _i, _i, _i, _i, _i, _i, _i,         # slots kv_h group d ps maxp
+                                                # pages_per_split
             _f, _i, _p]                         # scale dtype stream
         lib.paged_decode_fwd.restype = _i
         lib.paged_decode_quant_fwd.argtypes = [
             _p, _p, _p, _p, _p, _p,             # q k v k_scale v_scale out
             _p, _p,                             # table positions
-            _i, _i, _i, _i, _i, _i,             # slots kv_h group d ps maxp
+            _i, _i, _i, _i, _i, _i, _i,         # slots kv_h group d ps maxp
+                                                # pages_per_split
             _f, _i, _i, _p]                     # scale dtype storage stream
         lib.paged_decode_quant_fwd.restype = _i
         lib.decode_fwd.argtypes = [

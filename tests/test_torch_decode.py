@@ -35,8 +35,11 @@ def _paged_inputs(seed, slots, h, kv_h, d, ps, maxp, num_pages):
 
 
 @pytest.mark.parametrize("ps", [8, 16])
-@pytest.mark.parametrize("h,kv_h", [(4, 4), (4, 2), (8, 2)])
+@pytest.mark.parametrize("h,kv_h", [(4, 4), (4, 2), (8, 2), (32, 1),
+                                    (64, 2), (64, 1)])
 def test_paged_decode_matches_jax_kernel(h, kv_h, ps):
+    """MHA, GQA up to group 32 and MQA (kv_heads 1, group 32 and 64): every
+    group the CUDA kernels take, against the JAX GQA kernel."""
     args = _paged_inputs(0, 4, h, kv_h, 16, ps, 3, 10)
     want = jdec.paged_decode_attention(*map(jnp.asarray, args),
                                        force_kernel=True)
@@ -129,7 +132,6 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 
 @pytest.mark.parametrize("kw,needle", [
     (dict(num_heads=6, num_kv_heads=4, head_dim=16), "multiple"),
-    (dict(num_heads=64, num_kv_heads=2, head_dim=16), "group"),
     (dict(num_heads=4, num_kv_heads=2, head_dim=12), "head_dim"),
     (dict(num_heads=4, num_kv_heads=2, head_dim=512), "head_dim"),
     (dict(num_heads=4, num_kv_heads=2, head_dim=16,
@@ -146,6 +148,33 @@ def test_cuda_decision_refuses_what_the_kernel_does_not_take(kw, needle):
     assert ok["path"] == "kernel"
 
 
+@pytest.mark.parametrize("kw", [
+    dict(num_heads=64, num_kv_heads=2, dtype=torch.bfloat16),     # group 32
+    dict(num_heads=64, num_kv_heads=1, dtype=torch.float32),      # MQA
+    dict(num_heads=64, num_kv_heads=4, dtype=torch.bfloat16,
+         storage_dtype=torch.int8),                               # group 16
+    dict(num_heads=32, num_kv_heads=1, dtype=torch.bfloat16,
+         storage_dtype=torch.int8),                               # MQA int8
+])
+def test_cuda_decision_takes_every_group(kw):
+    """No group ceiling: the paged kernels tile the group in 16-row
+    tiles, so every group the JAX kernel takes runs on the card."""
+    dec = tdec.paged_kernel_decision(device_type="cuda", head_dim=128, **kw)
+    assert dec["path"] == "kernel", dec
+
+
+@pytest.mark.parametrize("ps", [1, 8, 16, 24, 32, 100, 128, 512])
+def test_split_is_whole_pages_and_at_most_max_splits(ps):
+    """A split holds at least SPLIT_KEYS keys in whole pages, a slot has
+    at most MAX_SPLITS of them, and no smaller split would do."""
+    for max_pages in (1, 7, 16, 64, 513):
+        pps = tdec.pages_per_split(ps, max_pages)
+        n_splits = -(-max_pages // pps)
+        assert pps * ps >= tdec.SPLIT_KEYS and n_splits <= tdec.MAX_SPLITS
+        assert (pps - 1) * ps < tdec.SPLIT_KEYS or \
+            -(-max_pages // (pps - 1)) > tdec.MAX_SPLITS
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -157,31 +186,138 @@ def cuda():
     return torch.device("cuda")
 
 
+def split_positions(ps, maxp):
+    """Positions around the first split boundary of the paged kernels
+    (one key short of a full split, a full split, one key into the
+    second), position 0, the table's last key and one past the table
+    (clamped)."""
+    sk = tdec.pages_per_split(ps, maxp) * ps
+    assert maxp * ps > sk + 1
+    return [0, sk - 2, sk - 1, sk, maxp * ps - 1, maxp * ps + 7]
+
+
+def poisoned_paged_inputs(cuda, h, kv_h, d, ps, dtype, seed=0):
+    """q, pools, a page table and positions on the card, plus the pools
+    with page 0 set to NaN: live keys never use page 0, and every table
+    entry past a slot's position is 0 (unallocated), so a kernel that
+    reads past the position returns NaN."""
+    maxp = 3 * -(-tdec.SPLIT_KEYS // ps) + 1
+    pos = split_positions(ps, maxp)
+    slots, num_pages = len(pos), len(pos) * maxp + 1
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(slots, 1, h, d, device=cuda, generator=g).to(dtype)
+    kp, vp = (torch.randn(num_pages, ps, kv_h, d, device=cuda,
+                          generator=g).to(dtype) for _ in range(2))
+    pt = (1 + torch.randperm(num_pages - 1, device=cuda, generator=g)[
+        :slots * maxp]).reshape(slots, maxp).to(torch.int32)
+    for i, p in enumerate(pos):
+        pt[i, p // ps + 1:] = 0
+    pos = torch.tensor(pos, device=cuda, dtype=torch.int32)
+    kp_nan, vp_nan = kp.clone(), vp.clone()
+    kp_nan[0] = float("nan")
+    vp_nan[0] = float("nan")
+    return q, (kp, vp), (kp_nan, vp_nan), pt, pos
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("h,kv_h,d,ps", [(32, 32, 128, 16), (64, 8, 128, 16),
-                                         (4, 2, 64, 8), (8, 8, 40, 32),
-                                         (16, 1, 256, 16)])
+@pytest.mark.parametrize("h,kv_h,d,ps", [
+    (32, 32, 128, 16),     # group 1 (Llama-2-7B heads)
+    (4, 2, 64, 8),         # group 2
+    (64, 8, 128, 16),      # group 8 (Llama-2-70B heads)
+    (32, 2, 128, 32),      # group 16
+    (64, 2, 64, 16),       # group 32: two 16-row tiles
+    (64, 1, 128, 16),      # MQA
+    (8, 8, 40, 32),        # head_dim 40: padded to the mma depth
+    (24, 2, 256, 8),       # group 12, head_dim 256
+    (16, 1, 256, 16)])
 def test_paged_kernel_matches_plain_on_card(cuda, h, kv_h, d, ps, dtype,
                                             atol):
-    slots, maxp, num_pages = 5, 9, 40
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(slots, 1, h, d, device=cuda, generator=g).to(dtype)
-    kp = torch.randn(num_pages, ps, kv_h, d, device=cuda,
-                     generator=g).to(dtype)
-    vp = torch.randn(num_pages, ps, kv_h, d, device=cuda,
-                     generator=g).to(dtype)
-    pt = torch.randint(0, num_pages, (slots, maxp), device=cuda,
-                       generator=g, dtype=torch.int32)
-    pos = torch.tensor([0, ps // 2, ps, 3 * ps + 5, maxp * ps - 1],
-                       device=cuda, dtype=torch.int32)
+    q, pools, poisoned, pt, pos = poisoned_paged_inputs(cuda, h, kv_h, d,
+                                                        ps, dtype)
     before = tdec.launch_counts()["paged_decode_fwd"]
-    got = tdec.paged_decode_attention(q, kp, vp, pt, pos)
+    got = tdec.paged_decode_attention(q, *poisoned, pt, pos)
     torch.cuda.synchronize()
     assert tdec.launch_counts()["paged_decode_fwd"] == before + 1
-    want = tdec.paged_decode_attention_plain(q, kp, vp, pt, pos)
+    want = tdec.paged_decode_attention_plain(q, *pools, pt, pos)
+    assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() < atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_name", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv_h", [(32, 32), (64, 8), (64, 1)])
+def test_paged_kernel_is_batch_invariant_on_card(cuda, h, kv_h, dtype,
+                                                 kv_name):
+    """A slot's output is the same bits alone and inside a 32-slot batch,
+    and two runs are bit-equal: splits are merged in a fixed order and no
+    sum is taken with atomics."""
+    from deepspeed_tpu_torch.ops.quant import kv as tkv
+    d, ps, maxp, slots = 128, 16, 72, 32
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(slots, 1, h, d, device=cuda, generator=g).to(dtype)
+    kp, vp = (torch.randn(slots * maxp, ps, kv_h, d, device=cuda,
+                          generator=g) for _ in range(2))
+    scales = {}
+    if kv_name is None:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        kp, scales["k_scale"] = tkv.quantize_kv_rows(kp, kv_name)
+        vp, scales["v_scale"] = tkv.quantize_kv_rows(vp, kv_name)
+    pt = torch.randperm(slots * maxp, device=cuda, generator=g).reshape(
+        slots, maxp).to(torch.int32)
+    pos = torch.randint(0, maxp * ps, (slots,), device=cuda, generator=g,
+                        dtype=torch.int32)
+    sk = tdec.pages_per_split(ps, maxp) * ps
+    pos[:3] = torch.tensor([0, sk - 1, sk], dtype=torch.int32)
+    full = tdec.paged_decode_attention(q, kp, vp, pt, pos, **scales)
+    assert torch.equal(full, tdec.paged_decode_attention(q, kp, vp, pt, pos,
+                                                         **scales))
+    for i in (0, 1, 2, 5, 31):
+        alone = tdec.paged_decode_attention(
+            q[i:i + 1].contiguous(), kp, vp, pt[i:i + 1].contiguous(),
+            pos[i:i + 1].contiguous(), **scales)
+        assert torch.equal(alone[0], full[i]), i
+    want = tdec.paged_decode_attention_plain(q, kp, vp, pt, pos, **scales)
+    atol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert (full.float() - want.float()).abs().max().item() < atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_name", [None, "int8"])
+def test_paged_kernel_graph_replay_equals_eager_on_card(cuda, kv_name):
+    """The host never reads the positions: a CUDA graph captured once
+    replays the same bits as the eager call, after new positions too."""
+    from deepspeed_tpu_torch.ops.quant import kv as tkv
+    q, pools, _, pt, pos = poisoned_paged_inputs(cuda, 64, 8, 128, 16,
+                                                 torch.bfloat16, seed=3)
+    kp, vp = pools
+    scales = {}
+    if kv_name is not None:
+        kp, scales["k_scale"] = tkv.quantize_kv_rows(kp.float(), kv_name)
+        vp, scales["v_scale"] = tkv.quantize_kv_rows(vp.float(), kv_name)
+    name = "paged_decode_quant_fwd" if scales else "paged_decode_fwd"
+    eager = tdec.paged_decode_attention(q, kp, vp, pt, pos, **scales)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tdec.paged_decode_attention(q, kp, vp, pt, pos, **scales)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdec.paged_decode_attention(q, kp, vp, pt, pos, **scales)
+    before = tdec.launch_counts()[name]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    pos.copy_(pos.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tdec.paged_decode_attention(q, kp, vp, pt, pos,
+                                                        **scales))
+    assert tdec.launch_counts()[name] == before + 1   # replays: no wrapper
 
 
 @pytest.mark.cuda

@@ -336,11 +336,13 @@ def test_kv_page_bytes_equals_the_leaves_per_usable_page(name):
 
 
 @pytest.mark.parametrize("name", KV_NAMES)
-@pytest.mark.parametrize("h,kv_h", [(4, 4), (4, 2), (8, 2)])
+@pytest.mark.parametrize("h,kv_h", [(4, 4), (4, 2), (8, 2), (64, 4),
+                                    (64, 1)])
 def test_paged_decode_quantized_matches_jax_kernel(h, kv_h, name):
     """The plain version with scale pools against the JAX quantized
     Pallas kernels in interpret mode: ``_paged_decode_kernel_quant``
-    (MHA, h == kv_h) and ``_paged_decode_kernel_gqa(quantized=True)``;
+    (MHA, h == kv_h) and ``_paged_decode_kernel_gqa(quantized=True)``,
+    up to group 16 and MQA (group 64), every group the CUDA kernel takes;
     ragged positions 0, mid-page, a page boundary and the full table.
     fp32 compute, atol 1e-5 (same products, different summation order)."""
     slots, d, ps, maxp, num_pages = 4, 16, 8, 3, 10
@@ -377,8 +379,6 @@ def test_paged_decode_quantized_matches_jax_kernel(h, kv_h, name):
 @pytest.mark.parametrize("kw,needle", [
     (dict(head_dim=24, storage_dtype=torch.int8), "multiple of 16"),
     (dict(head_dim=12), "multiple of 8"),
-    (dict(head_dim=128, num_heads=64, num_kv_heads=4,
-          storage_dtype=torch.int8), "quantized pool"),
     (dict(head_dim=128, storage_dtype=torch.uint8), "storage dtype"),
 ])
 def test_cuda_decision_depends_on_the_storage_dtype(kw, needle):
@@ -454,25 +454,38 @@ def test_int8_matmul_kernel_is_batch_invariant_on_card(cuda):
 @pytest.mark.parametrize("name", ["int8", "fp8"])
 @pytest.mark.parametrize("h,kv_h,d,ps", [(32, 32, 128, 16), (64, 8, 128, 16),
                                          (4, 2, 64, 8), (8, 8, 48, 32),
-                                         (8, 1, 256, 16)])
+                                         (8, 1, 256, 16), (64, 4, 128, 16),
+                                         (64, 2, 64, 16), (64, 1, 128, 32)])
 def test_paged_quant_kernel_matches_plain_on_card(cuda, h, kv_h, d, ps, name,
                                                   dtype, atol):
-    slots, maxp, num_pages = 5, 9, 40
+    """Groups 1 to 32 and MQA; positions 0, around the first split
+    boundary of the kernel, the table's last key and one past it; page 0
+    (every unallocated table entry past a position) holds NaN payload and
+    scales in the kernel's pools, so a read past the position shows."""
+    maxp = 3 * -(-tdec.SPLIT_KEYS // ps) + 1
+    sk = tdec.pages_per_split(ps, maxp) * ps
+    pos = [0, sk - 2, sk - 1, sk, maxp * ps - 1, maxp * ps + 7]
+    slots, num_pages = len(pos), len(pos) * maxp + 1
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(slots, 1, h, d, device=cuda, generator=gen).to(dtype)
     kq, ks = tkv.quantize_kv_rows(
         torch.randn(num_pages, ps, kv_h, d, device=cuda, generator=gen), name)
     vq, vs = tkv.quantize_kv_rows(
         torch.randn(num_pages, ps, kv_h, d, device=cuda, generator=gen), name)
-    pt = torch.randint(0, num_pages, (slots, maxp), device=cuda,
-                       generator=gen, dtype=torch.int32)
-    pos = torch.tensor([0, ps // 2, ps, 3 * ps + 5, maxp * ps - 1],
-                       device=cuda, dtype=torch.int32)
+    pt = (1 + torch.randperm(num_pages - 1, device=cuda, generator=gen)[
+        :slots * maxp]).reshape(slots, maxp).to(torch.int32)
+    for i, p in enumerate(pos):
+        pt[i, p // ps + 1:] = 0
+    pos = torch.tensor(pos, device=cuda, dtype=torch.int32)
+    ks_nan, vs_nan = ks.clone(), vs.clone()
+    ks_nan[0] = float("nan")
+    vs_nan[0] = float("nan")
     before = tdec.launch_counts()["paged_decode_quant_fwd"]
-    got = tdec.paged_decode_attention(q, kq, vq, pt, pos, k_scale=ks,
-                                      v_scale=vs)
+    got = tdec.paged_decode_attention(q, kq, vq, pt, pos, k_scale=ks_nan,
+                                      v_scale=vs_nan)
     torch.cuda.synchronize()
     assert tdec.launch_counts()["paged_decode_quant_fwd"] == before + 1
     want = tdec.paged_decode_attention_plain(q, kq, vq, pt, pos, k_scale=ks,
                                              v_scale=vs)
+    assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() < atol
