@@ -10,11 +10,13 @@ Phases, each of which must pass (any failure exits nonzero):
   2. build every CUDA kernel of the serve and train paths from the
      sources in the checkout (one nvcc per source, all started together,
      sm_90a; into build/), printing ptxas's registers and spills for
-     each kernel instantiation;
+     each kernel instantiation; no instantiation of the bf16 flash
+     forward (flash_fwd_wgmma_kernel) may spill;
   3. decode kernel phase: each decode kernel against its plain PyTorch
      version on the card, fp32 and bf16, at the serving path's shapes
-     (Llama-2-7B heads, a 128-bucketed dense cache, and GQA at
-     Llama-2-70B head widths), and at 32 slots x ~1024 keys for 7B heads,
+     (Llama-2-7B heads, a 128-bucketed dense cache, GQA at Llama-2-70B
+     head widths, and the dense cache at Falcon-7B's MQA heads, 71 over
+     1, d 64: five 16-head tiles), and at 32 slots x ~1024 keys for 7B heads,
      70B heads and Falcon-7B's MQA heads (71 over 1 kv head, d 64), with
      its time, the plain version's, SDPA's over the same (gathered) K/V,
      the bandwidth bound and the kernel's share of it; the paged shapes
@@ -35,7 +37,8 @@ Phases, each of which must pass (any failure exits nonzero):
      (b) b 1 l 4096, (c) q 512 / k 1024 causal, (d) non-causal l 1024,
      (e) Llama-2-7B heads, b 1 h 32 l 2048 d 128; each kernel's time,
      the plain versions', SDPA's forward and forward+backward, and the
-     bound max(flops / peak, bytes / 3.35 TB/s);
+     bound max(flops / peak, bytes / 3.35 TB/s), with the forward's
+     share of its bound and its ratio to SDPA's forward;
   4b. block-sparse kernel phase: sparse_fwd and the sparse_bwd_dq /
      sparse_bwd_dkv pair against their plain versions (o, lse, dq, dk,
      dv), bf16 and fp32, at b 1 l 4096 h 12 d 64 over six layouts:
@@ -495,7 +498,9 @@ def flash_case(torch, fl, name, b, lq, lk, h, d, causal, dtype, rotations,
            "causal": causal, "max_abs_err": errs, "tol": TOL[dtype_name],
            "ms": ms, "bound_ms": {k_: v_[0] for k_, v_ in bound.items()},
            "bound_by": {k_: v_[1] for k_, v_ in bound.items()},
-           "sdpa_bwd_ms": ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"]}
+           "sdpa_bwd_ms": ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"],
+           "fwd_bound_share": bound["fwd"][0] / ms["fwd"],
+           "fwd_vs_sdpa": ms["fwd"] / ms["sdpa_fwd"]}
     emit(out)
     return out
 
@@ -629,7 +634,9 @@ def sparse_case(torch, bs, fl, name, cfg, causal, dtype, rotations, seed,
     out.update({"pairs": n_pairs, "ms": ms,
                 "bound_ms": {k_: v_[0] for k_, v_ in bound.items()},
                 "bound_by": {k_: v_[1] for k_, v_ in bound.items()},
-                "sdpa_bwd_ms": ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"]})
+                "sdpa_bwd_ms": ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"],
+                "fwd_bound_share": bound["fwd"][0] / ms["fwd"],
+                "fwd_vs_sdpa": ms["fwd"] / ms["sdpa_fwd"]})
     emit(out)
     return out
 
@@ -1219,6 +1226,13 @@ def main():
     emit({"phase": "ptxas_paged_decode",
           "instantiations": [e for e in ptxas
                              if "paged_decode_kernel" in e["kernel"]]})
+    fwd_ptxas = [e for e in ptxas if "flash_fwd_wgmma_kernel" in e["kernel"]]
+    emit({"phase": "ptxas_flash_fwd", "instantiations": fwd_ptxas})
+    spilled = [e["kernel"] for e in fwd_ptxas
+               if "0 bytes spill stores, 0 bytes spill loads" not in
+               e["spill"]]
+    if not fwd_ptxas or spilled:
+        fail(f"the bf16 flash forward spills (or was not built): {spilled}")
 
     # ---- kernel phase: the serving path's shapes
     serve_pos = [0, 7, 100, 231]          # ragged: 0, mid-page, 200+ tokens
@@ -1244,6 +1258,9 @@ def main():
         dense_case(torch, dec, "llama2-7b batch 8 x 1024", 8, 32, 32, 128,
                    1024, [1023 - 100 * i for i in range(8)], dtype,
                    rotations=2, seed=5)
+        results[("dense_mqa", dn)] = dense_case(
+            torch, dec, "falcon-7b heads (MQA 71/1) generate cache", 1, 71,
+            1, 64, 256, [215], dtype, rotations=8, seed=6)
         for kv_name in ("int8", "fp8"):
             results[("paged_quant", kv_name, dn)] = paged_case(
                 torch, dec, "llama2-7b serve batch", 32, 32, 128, 16,
@@ -1398,6 +1415,7 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kernels[0]["also_replaces"] = "deepspeed_tpu/ops/attention/decode.py:411"
+    kernels[1]["mqa_71_1_ms"] = results[("dense_mqa", "bfloat16")]["kernel_ms"]
     kernels[0]["launches_group_8_serve"] = grouped_float
     # the quantized paged kernel: group 1 over the 7B quantized serve
     # phases, group 8 over the grouped serve; int8 pools, bf16 compute
@@ -1441,7 +1459,13 @@ def main():
     for name, key, errs, replaces, extra in (
             ("flash_fwd", "fwd", ("o", "lse"),
              "deepspeed_tpu/ops/attention/flash.py:242",
-             {"also_replaces": "deepspeed_tpu/ops/attention/flash.py:260"}),
+             {"also_replaces": "deepspeed_tpu/ops/attention/flash.py:260",
+              "by_shape": {
+                  key[0]: {"ms": f["ms"]["fwd"],
+                           "sdpa_ms": f["ms"]["sdpa_fwd"],
+                           "bound_ms": f["bound_ms"]["fwd"]}
+                  for key, f in flash_results.items()
+                  if key[1] == "bfloat16"}}),
             ("flash_bwd_dq", "bwd_dq", ("dq",),
              "deepspeed_tpu/ops/attention/flash.py:463",
              {"also_replaces": "deepspeed_tpu/ops/attention/flash.py:442 "

@@ -41,7 +41,10 @@
 //     built order): every head's heavy rows start first and the light ones
 //     fill in behind them. A row that is empty writes o = 0, lse = NEG_INF,
 //     and a key tile no query reaches writes zero dk / dv, in the kernel.
-// Not yet: splitting heavy rows across blocks, wgmma, TMA, cp.async.
+// The bf16 forward is the dense one's Hopper kernel (TMA ring, wgmma,
+// softmax in registers) under this walk; SparseWalk::full tells it which
+// tiles carry fine bits to mask. Not yet: splitting heavy rows across
+// blocks; wgmma and TMA in the backward pair.
 
 #include "flash_kernels.cuh"
 
@@ -111,6 +114,9 @@ struct SparseWalk {
     return (bits >> (((own - own_base) / fine) * kf + (other - base) / fine))
            & 1;
   }
+
+  // no fine bits: the walk's mask is the whole tile
+  __device__ bool full(int, int) const { return kf == 1; }
 
   static dim3 grid(const Params& p, int batch, bool) {
     return dim3(batch * p.heads, p.n_tiles);

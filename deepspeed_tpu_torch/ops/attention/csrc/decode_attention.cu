@@ -68,8 +68,12 @@
 //    rounded) in shared memory before the same product.
 //
 // The dense kernel (decode_kernel, decode_fwd) keeps its PR 1 design:
-// grid (sequence, kv head), 128 threads walking the whole cache in
-// rounds of 64 keys, 16-byte loads, scores by warp reductions.
+// grid (sequence, kv head, group tile), 128 threads walking the whole
+// cache in rounds of 64 keys, 16-byte loads, scores by warp reductions.
+// A block keeps one accumulator row per query head of its tile in
+// registers, so a group larger than kDenseGroupTile (16) is cut into
+// tiles of 16 heads over the grid's third dimension (MQA included);
+// groups of 16 or fewer are one tile, as before.
 //
 // Numerics follow the TPU kernels: fp32 scores = (q . k) * scale (+ bias),
 // clamped at NEG_INF = -1e30 (ops/attention/flash.py:42); a row whose
@@ -131,7 +135,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;                    // keys per round (2 per lane)
 constexpr int kKeysPerWarp = kTile / kWarps;
 constexpr int kUnroll = 4;                   // rows in flight per warp
-constexpr int kDenseMaxGroup = 16;
+constexpr int kDenseGroupTile = 16; // query heads of a block, at most
 
 // 16 bytes of a K/V row, kept packed while the load is in flight
 template <typename T>
@@ -168,8 +172,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     const DenseParams p) {
   constexpr int N = 16 / (int)sizeof(T);     // elements in 16 bytes
   constexpr int kChunksPerLane = (kMaxHeadDim / N + 31) / 32;
+  // the block's query heads: [g0, g0 + G) of its kv head's group
   const int b = blockIdx.x, kvh = blockIdx.y;
-  const int G = p.group, D = p.head_dim, H = p.kv_heads * G;
+  const int g0 = blockIdx.z * kDenseGroupTile;
+  const int G = min(kDenseGroupTile, p.group - g0), D = p.head_dim;
+  const int H = p.kv_heads * p.group, h0 = kvh * p.group + g0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_chunks = D / N;                // 16-byte chunks in a row
   const int n_slices = kThreads / n_chunks;  // key slices of the PV phase
@@ -184,8 +191,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   float* a_s = l_s + G;               // [G] this round's rescale factor
   float* red_s = a_s + G + 2 * kTile; // [n_slices][D] final reduction
 
-  const T* q = static_cast<const T*>(p.q) +
-               ((size_t)b * H + (size_t)kvh * G) * D;
+  const T* q = static_cast<const T*>(p.q) + ((size_t)b * H + h0) * D;
   for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_float(q[i]);
   for (int g = tid; g < G; g += kThreads) {
     m_s[g] = kNegInf;
@@ -246,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
                 }
               }
               s = warp_sum(dot) * p.scale;
-              s += p.bias[b * p.bias_sb + (long long)(kvh * G + g) *
+              s += p.bias[b * p.bias_sb + (long long)(h0 + g) *
                           p.bias_sh + (long long)(t0 + tt) * p.bias_sk];
               s = fmaxf(s, kNegInf);
             }
@@ -320,7 +326,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   }
 
   // reduce the key slices, one query row at a time; out = acc / l
-  T* out = static_cast<T*>(p.out) + ((size_t)b * H + (size_t)kvh * G) * D;
+  T* out = static_cast<T*>(p.out) + ((size_t)b * H + h0) * D;
 #pragma unroll
   for (int g = 0; g < kMaxGroup; ++g) {
     if (g < G) {
@@ -347,10 +353,12 @@ cudaError_t launch_dense(const DenseParams& p, int n_seq,
   constexpr int N = 16 / (int)sizeof(T);
   if (p.head_dim % N != 0) return cudaErrorInvalidValue;
   const int n_slices = kThreads / (p.head_dim / N);
+  const int tile = min(p.group, kDenseGroupTile);   // heads of a block
   const size_t smem = sizeof(float) *
-      ((size_t)p.group * (p.head_dim + kTile + 3) + 2 * kTile +
+      ((size_t)tile * (p.head_dim + kTile + 3) + 2 * kTile +
        (size_t)n_slices * p.head_dim);
-  const dim3 grid(n_seq, p.kv_heads);
+  const dim3 grid(n_seq, p.kv_heads,
+                  (p.group + kDenseGroupTile - 1) / kDenseGroupTile);
   if (p.group == 1)
     decode_kernel<T, 1><<<grid, kThreads, smem, stream>>>(p);
   else if (p.group == 2)
@@ -359,10 +367,8 @@ cudaError_t launch_dense(const DenseParams& p, int n_seq,
     decode_kernel<T, 4><<<grid, kThreads, smem, stream>>>(p);
   else if (p.group <= 8)
     decode_kernel<T, 8><<<grid, kThreads, smem, stream>>>(p);
-  else if (p.group <= kDenseMaxGroup)
-    decode_kernel<T, kDenseMaxGroup><<<grid, kThreads, smem, stream>>>(p);
   else
-    return cudaErrorInvalidValue;
+    decode_kernel<T, kDenseGroupTile><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1266,7 +1272,8 @@ extern "C" int decode_fwd(const void* q, const void* k_cache,
                           int kv_heads, int group, int head_dim, float scale,
                           int dtype, void* stream) {
   if (!shapes_ok(batch, kv_heads, group, head_dim, dtype) || max_len <= 0 ||
-      group > kDenseMaxGroup || kv_heads > 65535)
+      kv_heads > 65535 || (group + kDenseGroupTile - 1) / kDenseGroupTile >
+      65535)
     return static_cast<int>(cudaErrorInvalidValue);
   DenseParams p = {};
   p.q = q;

@@ -16,13 +16,21 @@
 // SparseWalk (block_sparse.cu) visits the tiles of a layout's active blocks
 // and masks inside them by fine-cell bits.
 //
-// Design, per dtype: bf16 runs its products on the tensor cores with WMMA
-// (namespace tc below); fp32 runs scalar FMAs on tiles of fp32 in shared
-// memory (rows padded by one float so the strided reads of a 16 x 8 thread
-// grid hit distinct banks) with a 4 x 8 register tile of scores per thread,
-// since the tensor cores would round fp32 to TF32. Not yet: wgmma, TMA,
-// cp.async double buffering, warp specialisation (PERF.md).
+// Design, per dtype and kernel: the bf16 forward is a Hopper kernel of
+// its own (namespace hw below: TMA ring, producer and consumer
+// warpgroups, wgmma for both products, softmax and O in registers); the
+// bf16 backward runs its products on the tensor cores with WMMA
+// (namespace tc); fp32 runs scalar FMAs on tiles of fp32 in shared
+// memory (rows padded by one float so the strided reads of a 16 x 8
+// thread grid hit distinct banks) with a 4 x 8 register tile of scores
+// per thread, since the tensor cores would round fp32 to TF32.
 //
+// A Walk also says whether a tile needs its own mask:
+//   walk.full(own0, o0)       true when walk.ok holds on the whole tile
+//                             (the bf16 forward then skips the mask
+//                             arithmetic where no causal or length edge
+//                             crosses the tile either).
+
 // Numerics follow the TPU kernels: scores = (q . k) * scale in fp32,
 // masked to NEG_INF = -1e30 (flash.py:42); a row whose running max is
 // still NEG_INF is dead (p = 0, o = 0, lse = NEG_INF); p is rounded to
@@ -30,10 +38,12 @@
 // (0 where lse is NEG_INF), ds = p * (dp - delta) * scale with delta =
 // sum(do * o) - dlse from the caller, and rounds p / ds to the operand
 // dtype before the dV / dK / dQ products. Causal: query i sees keys
-// j <= i + (k_len - q_len).
+// j <= i + (k_len - q_len). The bf16 forward takes exp(x) as
+// 2^(x log2 e) on the special-function unit (ex2.approx).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -79,6 +89,7 @@ struct Params {
   long long do_sb, do_sl, do_sh;
   int heads, lq, lk, causal;
   float scale;
+  int head_group;   // DenseWalk: heads whose tiles are launched together
   // the block-sparse walk's index (SparseWalk, block_sparse.cu; unused by
   // DenseWalk): per layout head, CSR rows of the layout's active blocks at
   // the tile granularity with their fine-cell bits, and the order in which
@@ -425,16 +436,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// ---------------------------------------------------- bf16 tensor cores
-// The bf16 kernels run their products on the tensor cores through WMMA
-// (16x16x16 bf16 fragments, fp32 accumulators): 4 warps, each owning 16
-// rows of a 64 x 64 tile. Operand tiles stay bf16 in shared memory (rows
-// padded by 8 elements); each warp stores its fp32 scores to a private
-// shared slice, where two lanes per row (even and odd columns) run the
-// masking, the online softmax or ds in fp32 and write p / ds rounded to
-// bf16 for the next product. The forward's output accumulator lives in
-// shared memory (its rows are rescaled by alpha between tiles); the
-// backward's dq, dk and dv accumulate in fragments across the whole loop.
+// ------------------------------------------------ bf16 backward (WMMA)
+// The bf16 backward kernels run their products on the tensor cores
+// through WMMA (16x16x16 bf16 fragments, fp32 accumulators): 4 warps,
+// each owning 16 rows of a 64 x 64 tile. Operand tiles stay bf16 in
+// shared memory (rows padded by 8 elements); each warp stores its fp32
+// scores to a private shared slice, where two lanes per row (even and odd
+// columns) run the masking and ds in fp32 and write p / ds rounded to
+// bf16 for the next product; dq, dk and dv accumulate in fragments
+// across the whole loop.
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -547,97 +557,8 @@ template <int D>
 size_t smem_bytes(Kind kind) {
   const size_t tile = 64 * ld<D>() * sizeof(bf16);
   const size_t prob = 64 * kLB * sizeof(bf16), score = 64 * kLS * 4;
-  if (kind == kFwd) return 3 * tile + prob + score + 64 * lo<D>() * 4;
   if (kind == kDq) return 4 * tile + prob + 2 * score;
   return 4 * tile + 2 * prob + 2 * score + 2 * 64 * 4;
-}
-
-template <int D, class Walk>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);     // [64][ld]
-  bf16* k_s = q_s + 64 * ld<D>();
-  bf16* v_s = k_s + 64 * ld<D>();
-  bf16* p_s = v_s + 64 * ld<D>();                    // [64][kLB]
-  float* s_s = reinterpret_cast<float*>(p_s + 64 * kLB);   // [64][kLS]
-  float* o_s = s_s + 64 * kLS;                       // [64][lo]
-
-  Walk walk(p, false);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = warp * 16, rl = r0 + lane / 2, half = lane % 2;
-  const int q0 = walk.own0, bh = walk.bh;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const int offset = p.lk - p.lq, row = q0 + rl;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  load_tile<D>(q_s, static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh,
-               p.q_sl, q0, p.lq - q0);
-  for (int i = tid; i < 64 * lo<D>(); i += kThreads) o_s[i] = 0.f;
-  __syncthreads();
-  float m = kNegInf, l = 0.f;              // this lane's row statistics
-  float* srow = s_s + rl * kLS + half;     // columns 2j + half
-  bf16* prow = p_s + rl * kLB + half;
-  float* orow = o_s + rl * lo<D>() + half;
-
-  int k0 = 0;
-  while (walk.next(k0)) {
-    __syncthreads();
-    load_tile<D>(k_s, kb, p.k_sl, k0, p.lk - k0);
-    load_tile<D>(v_s, vb, p.v_sl, k0, p.lk - k0);
-    __syncthreads();
-    scores<D>(s_s + r0 * kLS, q_s + r0 * ld<D>(), k_s);
-    __syncwarp();
-
-    float mx = kNegInf;
-    for (int j = 0; j < 32; ++j) {
-      const int col = k0 + 2 * j + half;
-      const bool ok = col < p.lk && (!p.causal || col <= row + offset) &&
-                      walk.ok(row, col);
-      srow[2 * j] = ok ? srow[2 * j] * p.scale : kNegInf;
-      mx = fmaxf(mx, srow[2 * j]);
-    }
-    const float m_new = fmaxf(m, fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx,
-                                                           1)));
-    const bool live = m_new > 0.5f * kNegInf;
-    const float alpha = live ? expf(m - m_new) : 0.f;
-    float sum = 0.f;
-    for (int j = 0; j < 32; ++j) {
-      const float e = live ? expf(srow[2 * j] - m_new) : 0.f;
-      sum += e;
-      prow[2 * j] = __float2bfloat16(e);
-    }
-    l = alpha * l + sum + __shfl_xor_sync(0xffffffffu, sum, 1);
-    m = m_new;
-    for (int j = 0; j < D / 2; ++j) orow[2 * j] *= alpha;
-    __syncwarp();
-
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragC c;
-      float* o_tile = o_s + r0 * lo<D>() + n * 16;
-      wmma::load_matrix_sync(c, o_tile, lo<D>(), wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        FragA fa;
-        FragBRow fb;
-        wmma::load_matrix_sync(fa, p_s + r0 * kLB + kk * 16, kLB);
-        wmma::load_matrix_sync(fb, v_s + kk * 16 * ld<D>() + n * 16,
-                               ld<D>());
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(o_tile, c, lo<D>(), wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  if (row < p.lq) {
-    const float ll = l == 0.f ? 1.f : l;   // dead row -> zeros
-    bf16* dst = static_cast<bf16*>(p.o) +
-                (((long long)b * p.lq + row) * p.heads + h) * D + half;
-    for (int j = 0; j < D / 2; ++j)
-      dst[2 * j] = __float2bfloat16(orow[2 * j] / ll);
-    if (half == 0) p.lse[(long long)bh * p.lq + row] = m + logf(ll);
-  }
 }
 
 template <int D, class Walk>
@@ -776,6 +697,649 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
 }  // namespace tc
 
+// ------------------------------------------- bf16 forward for Hopper (hw)
+// flash_fwd_wgmma_kernel: one block of a consumer warpgroup and a
+// producer warp owns 64 query rows.
+//   - one thread of the producer warp loads the block's Q tile once, then
+//     keeps kStages stages of K and V tiles in flight by TMA
+//     (cp.async.bulk.tensor through host-built tensor maps, 128-byte
+//     swizzle; 64-byte at d 32; the hardware zero-fills rows past the
+//     length), each stage with a full barrier and an empty barrier for
+//     K and for V: K is released once its scores are done and loaded a
+//     tile ahead of V;
+//   - the consumer warpgroup runs S = Q.K^T as wgmma m64n64k16 (both
+//     operands K-major in shared memory), the online softmax on S in
+//     registers (a row's 16 entries of a thread sit in a quad of lanes,
+//     so a row max is two shuffles; the row sum stays per thread until
+//     the end; exp is one ex2 each), rescales the O accumulator in
+//     registers by alpha (skipped where no row of the warp moved its
+//     max, since alpha is then exactly 1), packs P to bf16 straight
+//     from the accumulator layout into the A operand of O += P.V (wgmma
+//     m64nDk16, P from registers, V MN-major through the transpose
+//     flag), and releases the stage. It is software
+//     pipelined: tile t's S is issued with tile t-1's P.V, and tile t's
+//     softmax runs while P.V is on the tensor cores;
+//   - the mask arithmetic runs only on tiles that cross the causal
+//     diagonal or the ragged edge of the keys, or whose walk says that
+//     not all of the tile is live (Walk::full);
+//   - two blocks fit an SM at every head dim (registers: 147 a thread at
+//     d 128 under a 204 ceiling; shared memory: 81 KB at d 128, 57 KB at
+//     d 64). A producer warpgroup that hands its registers to the
+//     consumers (setmaxnreg) was measured and dropped: ptxas still held
+//     the consumers to the launch ceiling of a 256-thread block (128 at
+//     two blocks an SM), so d 128 spilled, and the 160-thread block ran
+//     faster at every shape; so did Q in shared memory against Q held in
+//     registers as the scores' A operand, and one block per query tile
+//     against a persistent grid of resident blocks that walk several
+//     (PERF.md).
+namespace hw {
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kFwdThreads = 160;    // consumer warpgroup + producer warp
+
+template <int D>
+struct FwdCfg {
+  static constexpr int kBox = D < 64 ? D : 64;     // columns of a TMA box
+  static constexpr int kRowBytes = kBox * 2;       // the swizzle span
+  static constexpr int kBoxBytes = 64 * kRowBytes; // one 64-row box
+  static constexpr int kTileBytes = 64 * D * 2;    // a 64-row Q / K / V tile
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kMinBlocks = 2;             // per SM
+  static constexpr uint32_t kSwizzle = D < 64 ? 2 : 1;  // 64 B : 128 B
+  // the 1024-byte alignment slack, Q, the K / V ring, 1 + 4 x kStages
+  // barriers
+  static constexpr int kSmem =
+      1024 + kTileBytes * (1 + 2 * kStages) + 8 * (1 + 4 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::
+               "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::
+               "r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA copies this phase
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+      "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait for the phase of parity `parity` to complete; a barrier that
+// stays open for ~10 s of clocks traps (a launch error) instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  const long long t0 = clock64();
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// a 64-row box of a [batch, len, heads, d] operand (tensor map dims d,
+// head, position, batch) -> shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d0, int h,
+                                         int row0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+      "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(d0), "r"(h), "r"(row0), "r"(b)
+      : "memory");
+}
+
+// a wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle mode
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t mode) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)mode << 62);
+}
+
+// K-major tile (Q or K: 64 rows of D, boxes of kBox columns): k-step kk
+// covers columns [16 kk, 16 kk + 16); 8-row groups are 8 swizzled rows
+// apart
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  using C = FwdCfg<D>;
+  const int col = 16 * kk;
+  return make_desc(tile + (col / C::kBox) * C::kBoxBytes +
+                       (col % C::kBox) * 2,
+                   16, 8 * C::kRowBytes, C::kSwizzle);
+}
+
+// MN-major tile (V: 64 keys of D, the product's N = D): k-step kk covers
+// keys [16 kk, 16 kk + 16); the boxes are the MN atoms (LBO), 8-key
+// groups are 8 rows apart (SBO)
+template <int D>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  using C = FwdCfg<D>;
+  return make_desc(tile + 16 * kk * C::kRowBytes, C::kBoxBytes,
+                   8 * C::kRowBytes, C::kSwizzle);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the fence / wait that bounds it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i]) :: "memory");
+}
+
+// d[32] (+)= A . B^T, m64n64k16: A and B from shared memory, both
+// K-major; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(
+    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[16] += A . B, m64n32k16: A (bf16 pairs) from registers, B from
+// shared memory, MN-major (the transpose flag)
+__device__ __forceinline__ void wgmma_rs_n32(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[32] += A . B, m64n64k16: A (bf16 pairs) from registers, B from
+// shared memory, MN-major (the transpose flag)
+__device__ __forceinline__ void wgmma_rs_n64(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64] += A . B, m64n128k16: A (bf16 pairs) from registers, B from
+// shared memory, MN-major (the transpose flag)
+__device__ __forceinline__ void wgmma_rs_n128(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (D == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+// 2^x on the special-function unit, one instruction (ex2.approx.ftz:
+// relative error ~2^-22, a result below 2^-126 flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+template <int D, class Walk>
+__global__ void __launch_bounds__(kFwdThreads, FwdCfg<D>::kMinBlocks)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const Params p) {
+  using C = FwdCfg<D>;
+  constexpr int S = C::kStages;
+  extern __shared__ __align__(1024) unsigned char fwd_smem[];
+  // the 128-byte swizzle pattern repeats every 1024 bytes: align to it
+  unsigned char* base =
+      fwd_smem + ((1024 - (smem_u32(fwd_smem) & 1023)) & 1023);
+  unsigned char* q_s = base;                          // [64][D], boxed
+  unsigned char* ring = base + C::kTileBytes;         // stage: K, then V
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(ring + 2 * S * C::kTileBytes);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + S;
+  uint64_t* k_empty = v_full + S;      // K's scores done: reload the stage
+  uint64_t* v_empty = k_empty + S;     // V's P.V done
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&k_empty[st], 128);      // every consumer thread
+      mbar_init(&v_empty[st], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  Walk walk(p, false);
+  const int q0 = walk.own0, bh = walk.bh;
+  const int b = bh / p.heads, h = bh % p.heads;
+
+  if (tid >= 128) {                     // ---- producer warp
+    if (tid == 128) {
+      mbar_arrive_expect(q_full, C::kTileBytes);
+#pragma unroll
+      for (int x = 0; x < D / C::kBox; ++x)
+        tma_load(q_s + x * C::kBoxBytes, &map_q, q_full, x * C::kBox, h,
+                 q0, b);
+      // K runs a tile ahead of V (K0, K1, V0, K2, V1, ...): a stage's K
+      // is free once its scores are done, its V only after P.V, so the
+      // next K goes out while the consumers still multiply by this V
+      auto load = [&](const CUtensorMap* map, uint64_t* bar, int st,
+                      int row0, int off) {
+        unsigned char* dst = ring + (2 * st + off) * C::kTileBytes;
+        mbar_arrive_expect(bar, C::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < D / C::kBox; ++x)
+          tma_load(dst + x * C::kBoxBytes, map, bar, x * C::kBox, h, row0,
+                   b);
+      };
+      int k0 = 0, st = 0, round = 0;
+      int v_k0 = -1, v_st = 0, v_round = 0;     // the V still to load
+      while (walk.next(k0)) {
+        if (round > 0) mbar_wait(&k_empty[st], (round - 1) & 1);
+        load(&map_k, &k_full[st], st, k0, 0);
+        if (v_k0 >= 0) {
+          if (v_round > 0) mbar_wait(&v_empty[v_st], (v_round - 1) & 1);
+          load(&map_v, &v_full[v_st], v_st, v_k0, 1);
+        }
+        v_k0 = k0;
+        v_st = st;
+        v_round = round;
+        if (++st == S) {
+          st = 0;
+          ++round;
+        }
+      }
+      if (v_k0 >= 0) {
+        if (v_round > 0) mbar_wait(&v_empty[v_st], (v_round - 1) & 1);
+        load(&map_v, &v_full[v_st], v_st, v_k0, 1);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: rows r and r + 8 of the tile, columns
+  // 8 j + c and 8 j + c + 1 of every 8-column group j
+  const int warp = tid / 32, lane = tid % 32;
+  const int r = 16 * warp + lane / 4, c = 2 * (lane % 4);
+  const int offset = p.lk - p.lq;
+  const int rows[2] = {q0 + r, q0 + r + 8};
+  const uint32_t q_addr = smem_u32(q_s);
+  float o[D / 2], s[32];
+  uint32_t pk[16];                     // P in the A layout of P.V
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // l: this thread's
+  mbar_wait(q_full, 0);
+
+  // S = Q.K^T of the tile in stage st, issued (not waited for)
+  auto issue_scores = [&](int st) {
+    const uint32_t k_addr = smem_u32(ring + 2 * st * C::kTileBytes);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor<D>(q_addr, kk), desc_kmajor<D>(k_addr, kk),
+                   kk > 0);
+    wg_commit();
+  };
+  // O += P.V of the tile in stage st, P from the packed registers
+  auto issue_pv = [&](int st) {
+    const uint32_t v_addr =
+        smem_u32(ring + (2 * st + 1) * C::kTileBytes);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
+                             pk[4 * kk + 3]};
+      wgmma_rs<D>(o, a, desc_mnmajor<D>(v_addr, kk));
+    }
+    wg_commit();
+  };
+  // the online softmax of the scores of key tile k0, in place: s becomes
+  // p (fp32), m and l move on, alpha rescales what O holds so far
+  auto softmax = [&](int k0, float (&alpha)[2]) {
+    // s[4 j + 2 i + e]: row rows[i], column k0 + 8 j + c + e
+    const bool masked = k0 + kBK > p.lk ||
+                        (p.causal && k0 + kBK - 1 > q0 + offset) ||
+                        !walk.full(q0, k0);
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = rows[i], col = k0 + 8 * j + c + e;
+            const bool ok = col < p.lk &&
+                            (!p.causal || col <= row + offset) &&
+                            walk.ok(row, col);
+            float& x = s[4 * j + 2 * i + e];
+            x = ok ? x * p.scale : kNegInf;
+          }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= p.scale;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // the row max over the thread's 16 entries as a tree, then the quad
+      float mj[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mj[j] = fmaxf(fmaxf(s[8 * j + 2 * i], s[8 * j + 2 * i + 1]),
+                      fmaxf(s[8 * j + 4 + 2 * i], s[8 * j + 5 + 2 * i]));
+      float mx = fmaxf(fmaxf(mj[0], mj[1]), fmaxf(mj[2], mj[3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      // a dead row (max still NEG_INF) subtracts 0, so every exp2 of
+      // NEG_INF * log2e is 0: p = 0, and alpha = 0 once the row lives
+      const float ms = m_new > 0.5f * kNegInf ? m_new * kLog2e : 0.f;
+      alpha[i] = ex2(m[i] * kLog2e - ms);
+      float sum[2] = {0.f, 0.f};       // two chains of adds, not one
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * i + e];
+          x = ex2(fmaf(x, kLog2e, -ms));
+          sum[e] += x;
+        }
+      l[i] = alpha[i] * l[i] + (sum[0] + sum[1]);
+      m[i] = m_new;
+    }
+  };
+  auto rescale_and_pack = [&](const float (&alpha)[2]) {
+    // alpha is exactly 1 where a row's max did not move: skip the
+    // products when that holds for every row of the warp (x * 1 = x)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          o[4 * j + 2 * i] *= alpha[i];
+          o[4 * j + 2 * i + 1] *= alpha[i];
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < 16; ++t) pk[t] = pack_bf16(s[2 * t], s[2 * t + 1]);
+  };
+
+  // Software pipeline over the walk: tile t's scores are issued together
+  // with tile t-1's P.V, and tile t's softmax runs while P.V is still on
+  // the tensor cores; O is rescaled once P.V has landed. The arithmetic
+  // and its order are those of a serial loop.
+  int k0 = 0, st = 0;
+  unsigned phase = 0;
+  if (walk.next(k0)) {
+    float alpha[2];
+    mbar_wait(&k_full[st], phase);
+    fence_regs(s);
+    wg_fence();
+    issue_scores(st);
+    wg_wait<0>();
+    fence_regs(s);
+    mbar_arrive(&k_empty[st]);
+    softmax(k0, alpha);
+    rescale_and_pack(alpha);
+    int prev = st;
+    unsigned prev_phase = phase;
+    if (++st == S) {
+      st = 0;
+      phase ^= 1;
+    }
+    while (walk.next(k0)) {
+      mbar_wait(&k_full[st], phase);
+      fence_regs(s);
+      fence_regs(o);
+      fence_regs(pk);
+      wg_fence();
+      issue_scores(st);
+      mbar_wait(&v_full[prev], prev_phase);
+      issue_pv(prev);
+      wg_wait<1>();                    // the scores; P.V may still run
+      fence_regs(s);
+      mbar_arrive(&k_empty[st]);
+      softmax(k0, alpha);
+      wg_wait<0>();
+      fence_regs(o);
+      fence_regs(pk);
+      mbar_arrive(&v_empty[prev]);
+      rescale_and_pack(alpha);
+      prev = st;
+      prev_phase = phase;
+      if (++st == S) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_wait(&v_full[prev], prev_phase);
+    fence_regs(o);
+    fence_regs(pk);
+    wg_fence();
+    issue_pv(prev);
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(pk);
+    mbar_arrive(&v_empty[prev]);
+  }
+
+  bf16* out = static_cast<bf16*>(p.o);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const float ll = li == 0.f ? 1.f : li;   // dead row -> zeros
+    const float inv = 1.f / ll;
+    const int row = rows[i];
+    if (row < p.lq) {
+      bf16* dst = out + (((long long)b * p.lq + row) * p.heads + h) * D + c;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      if (c == 0) p.lse[(long long)bh * p.lq + row] = m[i] + logf(ll);
+    }
+  }
+}
+
+// the tensor map of one [batch, len, heads, D] bf16 operand: dims (d,
+// head, position, batch), strides rising, box (kBox, 1, 64, 1); a dim of
+// extent 1 takes the stride a contiguous tensor would give it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime, so the library
+// links no -lcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+template <int D>
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int len,
+                int heads, long long sb, long long sl, long long sh) {
+  using C = FwdCfg<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)batch};
+  long long st[3] = {sh, sl, sb};
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1) st[i] = i == 0 ? D : st[i - 1] * dims[i];
+  const cuuint64_t strides[3] = {(cuuint64_t)st[0] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[2] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::kBox, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// builds the three maps on the host (no stream operation: safe while a
+// CUDA graph is captured; the maps travel by value in the launch)
+template <int D, class Walk>
+cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  if (p.lk <= 0) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  if (!encode_map<D>(&mq, p.q, batch, p.lq, p.heads, p.q_sb, p.q_sl,
+                     p.q_sh) ||
+      !encode_map<D>(&mk, p.k, batch, p.lk, p.heads, p.k_sb, p.k_sl,
+                     p.k_sh) ||
+      !encode_map<D>(&mv, p.v, batch, p.lk, p.heads, p.v_sb, p.v_sl,
+                     p.v_sh))
+    return cudaErrorInvalidValue;
+  auto kern = flash_fwd_wgmma_kernel<D, Walk>;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  const dim3 grid = Walk::grid(p, batch, false);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  kern<<<grid, kFwdThreads, C::kSmem, stream>>>(mq, mk, mv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace hw
+
 // ------------------------------------------------------------------ launch
 
 template <int D>
@@ -786,16 +1350,17 @@ size_t smem_bytes(Kind kind) {
   return sizeof(float) * (4 * tile + 2 * scores + 2 * kBQ);
 }
 
-// bf16 runs on the tensor cores (tc::), fp32 on the scalar kernels
+// bf16: the forward on hw::, the backward on tc::; fp32 on the scalar
+// kernels
 template <typename T, int D, class Walk>
 cudaError_t launch(Kind kind, const Params& p, int batch,
                    cudaStream_t stream) {
   void (*kern)(const Params);
   size_t smem;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    kern = kind == kFwd  ? tc::flash_fwd_kernel<D, Walk>
-           : kind == kDq ? tc::flash_bwd_dq_kernel<D, Walk>
-                         : tc::flash_bwd_dkv_kernel<D, Walk>;
+    if (kind == kFwd) return hw::launch_fwd<D, Walk>(p, batch, stream);
+    kern = kind == kDq ? tc::flash_bwd_dq_kernel<D, Walk>
+                       : tc::flash_bwd_dkv_kernel<D, Walk>;
     smem = tc::smem_bytes<D>(kind);
   } else {
     kern = kind == kFwd  ? flash_fwd_kernel<D, Walk>

@@ -34,7 +34,6 @@ _QUANT_STORAGE = {torch.int8: 1}          # + float8_e4m3fn: 2, where built
 if hasattr(torch, "float8_e4m3fn"):
     _QUANT_STORAGE[torch.float8_e4m3fn] = 2
 MAX_HEAD_DIM = 256
-DENSE_MAX_GROUP = 16   # decode_fwd keeps one accumulator row per head
 SPLIT_KEYS = 64        # keys per split of the paged kernels, at least
 MAX_SPLITS = 4         # splits of a slot: one thread block cluster
 
@@ -275,10 +274,12 @@ def decode_attention(q, k_cache, v_cache, *, bias, scale=None):
     [b, heads, l, max_len] carrying the validity mask.
 
     One query token (``l == 1``) on a CUDA tensor launches ``decode_fwd``,
-    which reads a grouped cache natively and takes the bias through its
-    strides (a broadcast bias is never materialised).  Several query
-    tokens (prefill into a cache) run the plain attention on any device,
-    as in the JAX package, where no TPU kernel serves that case."""
+    which reads a grouped cache natively (any group, MQA included: a
+    block takes up to 16 query heads of a kv head) and takes the bias
+    through its strides (a broadcast bias is never materialised).
+    Several query tokens (prefill into a cache) run the plain attention
+    on any device, as in the JAX package, where no TPU kernel serves
+    that case."""
     b, l, h, d = q.shape
     kv_h, max_len = k_cache.shape[2], k_cache.shape[1]
     if l != 1 or q.device.type == "cpu":
@@ -289,10 +290,6 @@ def decode_attention(q, k_cache, v_cache, *, bias, scale=None):
         head_dim=d, dtype=q.dtype)
     if decision["path"] != "kernel":
         raise ValueError(decision["reason"])
-    if h // kv_h > DENSE_MAX_GROUP:
-        raise ValueError(f"decode_attention: the dense kernel takes groups "
-                         f"of at most {DENSE_MAX_GROUP} query heads per kv "
-                         f"head, got {h // kv_h}")
     bias = bias.to(torch.float32).expand(b, h, 1, max_len)
     _check_cuda("decode_attention", q, k_cache, v_cache)
     if k_cache.dtype != q.dtype:

@@ -148,6 +148,40 @@ def _rows(x):
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def tma_ok(shape, strides, data_ptr, elem_size):
+    """Whether the bf16 forward's tensor maps read a ``[b, len, heads,
+    d]`` operand with these element ``strides`` in place: TMA wants a
+    16-byte aligned base, a unit head-dim stride, and for every other
+    dim with more than one entry a stride that is a whole number of 16
+    bytes; the map orders its dims (d, head, position, batch), so each
+    such stride must also clear the extent of the dims inside it (the
+    split views of a fused qkv projection do; a [b, h, l, d] tensor
+    transposed to [b, l, h, d] does not)."""
+    if strides[-1] != 1 or data_ptr % 16:
+        return False
+    inner = shape[-1]                  # elements the inner dims span
+    for dim in (2, 1, 0):
+        if shape[dim] == 1:
+            continue
+        if (strides[dim] * elem_size) % 16 or strides[dim] < inner:
+            return False
+        inner = strides[dim] * shape[dim]
+    return True
+
+
+def _fwd_operands(q, k, v):
+    """q, k, v as the forward kernels read them: unit head-dim strides,
+    and for bf16 (read by TMA) a contiguous copy of an operand that
+    :func:`tma_ok` refuses.  A copy, not a fallback: the kernel runs."""
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    if q.dtype != torch.bfloat16:
+        return q, k, v
+    return tuple(
+        t if tma_ok(t.shape, t.stride(), t.data_ptr(), t.element_size())
+        else t.contiguous() if not t.is_contiguous() else t.clone()
+        for t in (q, k, v))
+
+
 def _strides(*ts):
     flat = [s for t in ts for s in t.stride()[:3]]
     return (ctypes.c_longlong * 12)(*flat, *([0] * (12 - len(flat))))
@@ -164,13 +198,15 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     _check_cuda("flash_fwd", q, k, v)
-    q, k, v = _rows(q), _rows(k), _rows(v)
+    q, k, v = _fwd_operands(q, k, v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     o = torch.empty(b, lq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
+    if lk == 0:                        # no key: every row is dead
+        return o.zero_(), lse.fill_(NEG_INF)
     strides = _strides(q, k, v)
     err = _lib().flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

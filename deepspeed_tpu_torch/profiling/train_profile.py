@@ -28,7 +28,7 @@ import torch
 
 # kernel-name fragments -> category, first match wins
 CATEGORIES = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "splitk")),

@@ -48,8 +48,10 @@ def test_paged_decode_matches_jax_kernel(h, kv_h, ps):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-@pytest.mark.parametrize("h,kv_h", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("h,kv_h", [(4, 4), (4, 2), (64, 2), (8, 1)])
 def test_dense_decode_matches_jax_kernel(h, kv_h):
+    """MHA, GQA, group 32 (two of the CUDA kernel's 16-head tiles) and
+    MQA, against the JAX kernel, which takes every group."""
     rng = np.random.default_rng(1)
     b, d, max_len = 2, 16, 128
     q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
@@ -318,6 +320,59 @@ def test_paged_kernel_graph_replay_equals_eager_on_card(cuda, kv_name):
     assert torch.equal(out, tdec.paged_decode_attention(q, kp, vp, pt, pos,
                                                         **scales))
     assert tdec.launch_counts()[name] == before + 1   # replays: no wrapper
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("h,kv_h,d", [
+    (32, 1, 64),       # group 32: two 16-head tiles
+    (71, 1, 64),       # Falcon-7B MQA: five tiles, the last of 7 heads
+    (64, 2, 128)])     # group 32 over two kv heads
+def test_dense_kernel_takes_every_group_on_card(cuda, h, kv_h, d, dtype,
+                                                atol):
+    """No group ceiling: a group above 16 is tiled over the grid, each
+    tile reading its query heads' rows of q, the bias and the output."""
+    b, max_len = 3, 256
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(b, 1, h, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, max_len, kv_h, d, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, max_len, kv_h, d, device=cuda, generator=g).to(dtype)
+    pos = torch.tensor([0, 130, 255], device=cuda)
+    mask = torch.where(torch.arange(max_len, device=cuda)[None] <=
+                       pos[:, None], 0.0, torch.finfo(torch.float32).min)
+    for bias in (mask[:, None, None, :],
+                 mask[:, None, None, :] + 0.1 * torch.randn(
+                     b, h, 1, max_len, device=cuda, generator=g)):
+        before = tdec.launch_counts()["decode_fwd"]
+        got = tdec.decode_attention(q, k, v, bias=bias)
+        want = tdec.decode_attention_plain(q, k, v, bias=bias)
+        torch.cuda.synchronize()
+        assert tdec.launch_counts()["decode_fwd"] == before + 1
+        assert (got.float() - want.float()).abs().max().item() < atol
+
+
+@pytest.mark.cuda
+def test_mqa_generate_on_card_equals_cpu(cuda):
+    """generate() of an MQA Llama (32 query heads over one kv head) runs
+    the dense decode kernel on the card and gives the CPU run's tokens,
+    in fp32."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama, llama_tiny
+    cfg = dict(num_heads=32, num_kv_heads=1, hidden_size=1024)
+    cpu = deepspeed_tpu_torch.init_inference(
+        Llama(llama_tiny(**cfg)), dtype="float32", kv_cache_dtype="float32",
+        device="cpu")
+    cpu.init_params(0)
+    card = deepspeed_tpu_torch.init_inference(
+        Llama(llama_tiny(**cfg)), dtype="float32", kv_cache_dtype="float32",
+        device="cuda")
+    card.set_params({k: v for k, v in cpu.module.state_dict().items()})
+    ids = np.random.default_rng(5).integers(0, 256, (2, 9))
+    tdec.reset_launch_counts()
+    got = card.generate(ids, max_new_tokens=12)
+    assert tdec.launch_counts()["decode_fwd"] > 0
+    np.testing.assert_array_equal(got, cpu.generate(ids, max_new_tokens=12))
 
 
 @pytest.mark.cuda

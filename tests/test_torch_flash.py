@@ -223,3 +223,167 @@ def test_kernel_refuses_what_it_does_not_take(cuda, kw, needle):
     q = torch.zeros(1, 16, 2, d, device=cuda, dtype=dtype)
     with pytest.raises(ValueError, match=needle):
         tflash.flash_fwd(q, q, q)
+
+
+# ------------------------------------------- the bf16 forward's operands
+
+
+def _qkv_split(b=2, l=96, h=4, d=64):
+    qkv = torch.zeros(b, l, 3 * h * d, dtype=torch.bfloat16)
+    return tuple(t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
+
+
+def _tma_case(name):
+    """One [b, l, h, d] bf16 operand per case, on the CPU (the rule only
+    reads shapes, strides and the base address)."""
+    base = torch.zeros(2, 96, 4, 64, dtype=torch.bfloat16)
+    if name == "contiguous":
+        return base
+    if name == "qkv_split_views":
+        return _qkv_split()[1]
+    if name == "heads_transposed":       # [b, h, l, d] seen as [b, l, h, d]
+        return torch.zeros(2, 4, 96, 64, dtype=torch.bfloat16).transpose(1, 2)
+    if name == "misaligned_base":        # 8 bytes past an aligned address
+        flat = torch.zeros(2 * 96 * 4 * 64 + 4, dtype=torch.bfloat16)
+        return flat[4:].view(2, 96, 4, 64)
+    if name == "head_stride_off_16_bytes":   # heads 68 elements apart
+        return torch.zeros(2, 96, 4, 68, dtype=torch.bfloat16)[..., :64]
+    if name == "size_one_dims_any_stride":   # b = h = 1: their strides
+        return torch.zeros(1, 96, 1, 64, dtype=torch.bfloat16).as_strided(
+            (1, 96, 1, 64), (3, 64, 5, 1))
+    raise KeyError(name)
+
+
+TMA_CASES = [("contiguous", True), ("qkv_split_views", True),
+             ("heads_transposed", False), ("misaligned_base", False),
+             ("head_stride_off_16_bytes", False),
+             ("size_one_dims_any_stride", True)]
+
+
+@pytest.mark.parametrize("name,ok", TMA_CASES, ids=[c[0] for c in TMA_CASES])
+def test_tma_rule_decides_which_operands_go_in_without_a_copy(name, ok):
+    t = _tma_case(name)
+    assert tflash.tma_ok(t.shape, t.stride(), t.data_ptr(),
+                         t.element_size()) is ok
+    # what the bf16 forward is handed: the operand itself, or a copy
+    # that the rule takes, with the same values
+    q, _, _ = tflash._fwd_operands(t, t, t)
+    assert (q is t) is ok
+    assert tflash.tma_ok(q.shape, q.stride(), q.data_ptr(),
+                         q.element_size())
+    assert torch.equal(q, t)
+
+
+def test_fp32_operands_are_never_copied():
+    """The fp32 forward reads rows through three strides, not TMA."""
+    t = torch.zeros(2, 4, 96, 64).transpose(1, 2)
+    assert all(x is t for x in tflash._fwd_operands(t, t, t))
+
+
+# --------------------------------------------- the bf16 forward on the card
+
+
+def _card_inputs(cuda, seed, b, lq, lk, h, d, dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(b, n, h, d, device=cuda, generator=g).to(dtype)
+                 for n in (lq, lk, lk))
+
+
+def _check_fwd(q, k, v, causal, tol):
+    o, lse = tflash.flash_fwd(q, k, v, causal=causal)
+    o2, lse2 = tflash.flash_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert o.shape == o2.shape and lse.shape == lse2.shape
+    assert (o.float() - o2.float()).abs().max().item() < tol
+    live = lse2 > tflash.NEG_INF / 2
+    assert torch.equal(lse[~live], lse2[~live])       # exactly NEG_INF
+    assert not o[~live.transpose(1, 2)].any()         # and o = 0 there
+    if live.any():
+        assert (lse[live] - lse2[live]).abs().max().item() < tol
+    return o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("length", [1, 63, 65, 1000, 4097])
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_ragged_lengths_on_card(cuda, length, causal, dtype, tol):
+    """Lengths off the 64-row tile: the TMA boxes zero-fill past the end
+    and the mask covers the ragged key tile."""
+    q, k, v = _card_inputs(cuda, length, 1, length, length, 2, 64, dtype)
+    _check_fwd(q, k, v, causal, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("lq,lk", [(100, 300), (64, 1024), (300, 100),
+                                   (256, 64)])
+def test_forward_offsets_and_dead_rows_on_card(cuda, lq, lk, d, dtype, tol):
+    """Causal with lq < lk (query i sees keys <= i + lk - lq) and lq > lk
+    (the first lq - lk rows see no key: lse NEG_INF, o 0), at every head
+    dim: 64-byte swizzle at d 32, two boxes a tile at d 128."""
+    q, k, v = _card_inputs(cuda, d + lq, 2, lq, lk, 3, d, dtype)
+    _check_fwd(q, k, v, True, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv_split_views", "heads_transposed",
+                                    "head_stride_off_16_bytes",
+                                    "misaligned_base"])
+def test_forward_takes_any_strided_operand_on_card(cuda, layout):
+    """The split views of a fused qkv projection go to TMA in place;
+    operands the TMA rule refuses are copied first; all agree with the
+    plain version."""
+    b, l, h, d = 2, 300, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(9)
+    if layout == "qkv_split_views":
+        qkv = torch.randn(b, l, 3 * h * d, device=cuda, generator=g)
+        q, k, v = (t.view(b, l, h, d) for t in
+                   qkv.to(torch.bfloat16).split(h * d, dim=-1))
+    elif layout == "heads_transposed":
+        q, k, v = (torch.randn(b, h, l, d, device=cuda, generator=g).to(
+            torch.bfloat16).transpose(1, 2) for _ in range(3))
+    elif layout == "head_stride_off_16_bytes":
+        q, k, v = (torch.randn(b, l, h, d + 4, device=cuda, generator=g).to(
+            torch.bfloat16)[..., :d] for _ in range(3))
+    else:
+        q, k, v = (torch.randn(b * l * h * d + 4, device=cuda, generator=g)
+                   .to(torch.bfloat16)[4:].view(b, l, h, d)
+                   for _ in range(3))
+    ok = tflash.tma_ok(q.shape, q.stride(), q.data_ptr(), q.element_size())
+    assert ok is (layout == "qkv_split_views")
+    before = tflash.launch_counts()["flash_fwd"]
+    _check_fwd(q, k, v, True, 3e-2)
+    assert tflash.launch_counts()["flash_fwd"] == before + 1
+
+
+@pytest.mark.cuda
+def test_forward_two_runs_bit_equal_and_graph_replay_equals_eager(cuda):
+    """No atomics, no order that depends on the schedule: two runs give
+    the same bits; the tensor maps are built on the host at capture, so
+    a replayed CUDA graph gives the eager bits, after new inputs too."""
+    q, k, v = _card_inputs(cuda, 11, 2, 1000, 1000, 4, 128)
+    o1, lse1 = tflash.flash_fwd(q, k, v)
+    o2, lse2 = tflash.flash_fwd(q, k, v)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tflash.flash_fwd(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = tflash.flash_fwd(q, k, v)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    for t, new in zip((q, k, v), _card_inputs(cuda, 12, 2, 1000, 1000, 4,
+                                              128)):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    o3, lse3 = tflash.flash_fwd(q, k, v)
+    assert torch.equal(o, o3) and torch.equal(lse, lse3)

@@ -574,6 +574,26 @@ def test_dense_config_equals_the_dense_flash_kernels(cuda, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dense_config_forward_bit_equal_to_flash_fwd(cuda, causal, block):
+    """sparse_fwd and flash_fwd are the same bf16 forward under two
+    walks: over a dense layout they give the same bits, with the layout's
+    fine bits (block 16, every tile masked) or without (block 128)."""
+    L = 1008 if block == 16 else 1024
+    q, k, v, _ = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+                  for x in _inputs(8, 2, L, 3, 128))
+    n = -(-L // block)
+    layout = np.ones((1, n, n))
+    index = tbs.SparseIndex(np.tril(layout) if causal else layout,
+                            block=block)
+    o, lse = tbs.sparse_fwd(q, k, v, index, causal=causal)
+    o2, lse2 = tflash.flash_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kw,needle", [
     (dict(d=48), "head_dim"), (dict(dtype=torch.float16), "dtype")])
 def test_kernel_refuses_what_it_does_not_take(cuda, kw, needle):
