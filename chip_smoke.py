@@ -11,7 +11,9 @@ Phases, each of which must pass (any failure exits nonzero):
      sources in the checkout (one nvcc per source, all started together,
      sm_90a; into build/), printing ptxas's registers and spills for
      each kernel instantiation; no instantiation of the bf16 flash
-     forward (flash_fwd_wgmma_kernel) may spill;
+     forward (flash_fwd_wgmma_kernel) or of the bf16 backward pair
+     (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel; dense and
+     sparse walk, d 32 / 64 / 128) may spill;
   3. decode kernel phase: each decode kernel against its plain PyTorch
      version on the card, fp32 and bf16, at the serving path's shapes
      (Llama-2-7B heads, a 128-bucketed dense cache, GQA at Llama-2-70B
@@ -38,7 +40,9 @@ Phases, each of which must pass (any failure exits nonzero):
      (e) Llama-2-7B heads, b 1 h 32 l 2048 d 128; each kernel's time,
      the plain versions', SDPA's forward and forward+backward, and the
      bound max(flops / peak, bytes / 3.35 TB/s), with the forward's
-     share of its bound and its ratio to SDPA's forward;
+     share of its bound and its ratio to SDPA's forward, and the
+     backward's (the delta pre-pass and the pair) share of its bound and
+     its ratio to SDPA's backward;
   4b. block-sparse kernel phase: sparse_fwd and the sparse_bwd_dq /
      sparse_bwd_dkv pair against their plain versions (o, lse, dq, dk,
      dv), bf16 and fp32, at b 1 l 4096 h 12 d 64 over six layouts:
@@ -501,6 +505,8 @@ def flash_case(torch, fl, name, b, lq, lk, h, d, causal, dtype, rotations,
            "sdpa_bwd_ms": ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"],
            "fwd_bound_share": bound["fwd"][0] / ms["fwd"],
            "fwd_vs_sdpa": ms["fwd"] / ms["sdpa_fwd"]}
+    out["bwd_bound_share"] = bound["bwd"][0] / ms["bwd"]
+    out["bwd_vs_sdpa"] = ms["bwd"] / out["sdpa_bwd_ms"]
     emit(out)
     return out
 
@@ -1233,6 +1239,19 @@ def main():
                e["spill"]]
     if not fwd_ptxas or spilled:
         fail(f"the bf16 flash forward spills (or was not built): {spilled}")
+    # the bf16 backward pair: dq and dkv kernels, d 32 / 64 / 128, dense
+    # and sparse walk
+    bwd_ptxas = [e for e in ptxas
+                 if "flash_bwd_dq_wgmma_kernel" in e["kernel"] or
+                 "flash_bwd_dkv_wgmma_kernel" in e["kernel"]]
+    emit({"phase": "ptxas_flash_bwd", "instantiations": bwd_ptxas})
+    spilled = [e["kernel"] for e in bwd_ptxas
+               if "0 bytes spill stores, 0 bytes spill loads" not in
+               e["spill"]]
+    if len(bwd_ptxas) != 12 or spilled:
+        fail(f"the bf16 flash backward spills (or not all 12 of its "
+             f"instantiations were built): {spilled}, "
+             f"{len(bwd_ptxas)} built")
 
     # ---- kernel phase: the serving path's shapes
     serve_pos = [0, 7, 100, 231]          # ragged: 0, mid-page, 200+ tokens
@@ -1456,6 +1475,14 @@ def main():
     # plain and SDPA times of the backward cover the pair (dq, dk, dv)
     r = flash_results[("a", "bfloat16")]
     source = "deepspeed_tpu_torch/ops/attention/csrc/flash_attention.cu"
+
+    def bwd_by_shape(key):
+        # one kernel of the pair per bf16 shape; SDPA's backward and the
+        # pair's (the whole flash_bwd) time cover dq, dk and dv
+        return {k_[0]: {"ms": f["ms"][key], "bound_ms": f["bound_ms"][key],
+                        "pair_ms": f["ms"]["bwd"],
+                        "sdpa_bwd_ms": f["sdpa_bwd_ms"]}
+                for k_, f in flash_results.items() if k_[1] == "bfloat16"}
     for name, key, errs, replaces, extra in (
             ("flash_fwd", "fwd", ("o", "lse"),
              "deepspeed_tpu/ops/attention/flash.py:242",
@@ -1469,11 +1496,11 @@ def main():
             ("flash_bwd_dq", "bwd_dq", ("dq",),
              "deepspeed_tpu/ops/attention/flash.py:463",
              {"also_replaces": "deepspeed_tpu/ops/attention/flash.py:442 "
-              "(with flash_bwd_dkv)"}),
+              "(with flash_bwd_dkv)", "by_shape": bwd_by_shape("bwd_dq")}),
             ("flash_bwd_dkv", "bwd_dkv", ("dk", "dv"),
              "deepspeed_tpu/ops/attention/flash.py:479",
              {"also_replaces": "deepspeed_tpu/ops/attention/flash.py:442 "
-              "(with flash_bwd_dq)"})):
+              "(with flash_bwd_dq)", "by_shape": bwd_by_shape("bwd_dkv")})):
         fwd = key == "fwd"
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.attention.flash import (
-    _KERNEL_DTYPES, _bwd_inputs, _check_cuda, _fwd_operands,
+    _KERNEL_DTYPES, _bwd_inputs, _check_cuda, _tma_operands,
     _raise_if_failed, _scale, _strides, flash_bwd_plain, flash_fwd_plain)
 
 _LAUNCHES = {"sparse_fwd": 0, "sparse_bwd_dq": 0, "sparse_bwd_dkv": 0}
@@ -266,7 +266,7 @@ def sparse_fwd(q, k, v, index, *, causal, scale=None):
                                 factor=index.factor)
     _check_cuda("sparse_fwd", q, k, v)
     _check_index("sparse_fwd", q, k, index)
-    q, k, v = _fwd_operands(q, k, v)
+    q, k, v = _tma_operands(q, k, v)
     b, L, h, d = q.shape
     o = torch.empty(b, L, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, L, dtype=torch.float32, device=q.device)

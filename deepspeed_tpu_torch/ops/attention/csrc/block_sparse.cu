@@ -41,16 +41,17 @@
 //     built order): every head's heavy rows start first and the light ones
 //     fill in behind them. A row that is empty writes o = 0, lse = NEG_INF,
 //     and a key tile no query reaches writes zero dk / dv, in the kernel.
-// The bf16 forward is the dense one's Hopper kernel (TMA ring, wgmma,
-// softmax in registers) under this walk; SparseWalk::full tells it which
-// tiles carry fine bits to mask. Not yet: splitting heavy rows across
-// blocks; wgmma and TMA in the backward pair.
+// The bf16 kernels are the dense ones' Hopper kernels (TMA ring, wgmma,
+// softmax or p / ds in registers) under this walk; SparseWalk::full tells
+// them which tiles carry fine bits to mask. Not yet: splitting heavy rows
+// (and columns) across blocks.
 
 #include "flash_kernels.cuh"
 
 namespace {
 
 struct SparseWalk {
+  static constexpr bool kIndexed = true;
   int own0, bh;
   const int* cols;
   const int* fmask;
@@ -117,6 +118,13 @@ struct SparseWalk {
 
   // no fine bits: the walk's mask is the whole tile
   __device__ bool full(int, int) const { return kf == 1; }
+
+  // the current entry (its first row and fine bits), which ok() reads
+  __device__ int2 entry() const { return make_int2(base, bits); }
+  __device__ void enter(int2 x) {
+    base = x.x;
+    bits = x.y;
+  }
 
   static dim3 grid(const Params& p, int batch, bool) {
     return dim3(batch * p.heads, p.n_tiles);

@@ -11,7 +11,9 @@
 //   flash_bwd_dkv  <- _bwd_dkv_kernel (:384, pallas_call :479).
 //   The pair also computes what _bwd_fused_kernel (:289, pallas_call :442)
 //   computes: fusing dq with dk/dv saves grid steps on the TPU; here the
-//   FlashAttention-2 split keeps both kernels deterministic (no atomics).
+//   FlashAttention-2 split keeps both kernels deterministic (no atomics:
+//   a fused pass would add dQ across key blocks with float atomics, in an
+//   order that changes from run to run), at 7 products instead of 5.
 //
 // Bound on an H100 SXM: the forward does 4*lq*lk*d flops per (batch, head)
 // (about half of it when causal) over 2*(lq+lk)*d elements read and
@@ -32,13 +34,18 @@
 // the accumulator registers (no score or probability tile in shared
 // memory, P fed to P.V from registers, the softmax of one tile under
 // the P.V of the one before) and keeps O in registers; the producer is
-// one warp, so two blocks fit an SM at every head dim. Causal tiles that are
-// fully masked are never visited (DenseWalk below), the heaviest query
-// tiles launch first, so they do not set the tail, and the blocks in
-// flight cover few enough heads that the K / V they read stay in L2. The
-// fp32 forward (scalar FMAs, the serving and training oracle) and the
-// backward pair (WMMA) keep their tile kernels. The numerics are stated
-// in flash_kernels.cuh.
+// one warp, so two blocks fit an SM at every head dim. The bf16 backward
+// pair (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel) is built
+// the same way: the block's own pair of tiles loaded once, the walked
+// pair (with the query tile's lse and delta in dkv) in a TMA ring, the
+// score-side products S and dP as wgmma, p and ds made and packed to
+// bf16 in registers as the A operand of dQ += dS.K (or dV += P^T.dO and
+// dK += dS^T.Q), one tile's p / ds under the last tile's products. Causal
+// tiles that are fully masked are never visited (DenseWalk below), the
+// heaviest tiles launch first, so they do not set the tail, and the
+// blocks in flight cover few enough heads that what they walk stays in
+// L2. The fp32 kernels (scalar FMAs) are the serving and training
+// oracle. The numerics are stated in flash_kernels.cuh.
 
 #include "flash_kernels.cuh"
 
@@ -54,6 +61,7 @@ namespace {
 // behind them, while the blocks in flight read the K / V (or Q / dO) of
 // few enough heads to stay in L2 (dense_head_group below).
 struct DenseWalk {
+  static constexpr bool kIndexed = false;
   int own0, bh, next_row, end;
 
   __device__ DenseWalk(const Params& p, bool keys_own) {
@@ -84,6 +92,8 @@ struct DenseWalk {
   }
   __device__ bool ok(int, int) const { return true; }
   __device__ bool full(int, int) const { return true; }
+  __device__ int2 entry() const { return make_int2(0, 0); }
+  __device__ void enter(int2) {}
   static dim3 grid(const Params& p, int batch, bool keys_own) {
     const int rows = keys_own ? p.lk : p.lq;
     return dim3(batch * p.heads, (rows + kBQ - 1) / kBQ);

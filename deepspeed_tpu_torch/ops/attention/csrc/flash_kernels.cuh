@@ -16,20 +16,28 @@
 // SparseWalk (block_sparse.cu) visits the tiles of a layout's active blocks
 // and masks inside them by fine-cell bits.
 //
-// Design, per dtype and kernel: the bf16 forward is a Hopper kernel of
-// its own (namespace hw below: TMA ring, producer and consumer
-// warpgroups, wgmma for both products, softmax and O in registers); the
-// bf16 backward runs its products on the tensor cores with WMMA
-// (namespace tc); fp32 runs scalar FMAs on tiles of fp32 in shared
-// memory (rows padded by one float so the strided reads of a 16 x 8
-// thread grid hit distinct banks) with a 4 x 8 register tile of scores
-// per thread, since the tensor cores would round fp32 to TF32.
+// Design, per dtype: bf16 runs Hopper kernels (namespace hw below: a
+// producer warp keeping a TMA ring of tiles in flight, a consumer
+// warpgroup running every product as wgmma, the softmax of the forward
+// and the p / ds of the backward pair in the accumulator registers); fp32
+// runs scalar FMAs on tiles of fp32 in shared memory (rows padded by one
+// float so the strided reads of a 16 x 8 thread grid hit distinct banks)
+// with a 4 x 8 register tile of scores per thread, since the tensor cores
+// would round fp32 to TF32.
 //
 // A Walk also says whether a tile needs its own mask:
 //   walk.full(own0, o0)       true when walk.ok holds on the whole tile
-//                             (the bf16 forward then skips the mask
+//                             (the bf16 kernels then skip the mask
 //                             arithmetic where no causal or length edge
-//                             crosses the tile either).
+//                             crosses the tile either);
+//   walk.entry(), walk.enter(e)  what walk.ok reads of the current tile
+//                             (SparseWalk: its entry's first row and fine
+//                             bits), so that a walk which never calls next()
+//                             can take it from one that does (the bf16
+//                             backward's producer publishes it per stage);
+//   Walk::kIndexed            whether walk.ok reads an index (fine bits):
+//                             the bf16 backward gives that arithmetic the
+//                             registers of one block fewer an SM at d 64.
 
 // Numerics follow the TPU kernels: scores = (q . k) * scale in fp32,
 // masked to NEG_INF = -1e30 (flash.py:42); a row whose running max is
@@ -38,20 +46,17 @@
 // (0 where lse is NEG_INF), ds = p * (dp - delta) * scale with delta =
 // sum(do * o) - dlse from the caller, and rounds p / ds to the operand
 // dtype before the dV / dK / dQ products. Causal: query i sees keys
-// j <= i + (k_len - q_len). The bf16 forward takes exp(x) as
-// 2^(x log2 e) on the special-function unit (ex2.approx).
+// j <= i + (k_len - q_len). The bf16 kernels take exp(x) as 2^(x log2 e)
+// on the special-function unit (ex2.approx).
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
-
-using namespace nvcuda;
 
 namespace {
 
@@ -436,267 +441,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// ------------------------------------------------ bf16 backward (WMMA)
-// The bf16 backward kernels run their products on the tensor cores
-// through WMMA (16x16x16 bf16 fragments, fp32 accumulators): 4 warps,
-// each owning 16 rows of a 64 x 64 tile. Operand tiles stay bf16 in
-// shared memory (rows padded by 8 elements); each warp stores its fp32
-// scores to a private shared slice, where two lanes per row (even and odd
-// columns) run the masking and ds in fp32 and write p / ds rounded to
-// bf16 for the next product; dq, dk and dv accumulate in fragments
-// across the whole loop.
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int kLS = kBK + 4;     // fp32 score row
-constexpr int kLB = kBK + 8;     // bf16 p / ds row
-static_assert(kThreads == 4 * 32 && kBQ == 4 * 16, "4 warps x 16 rows");
-
-// row strides: bf16 operand tiles, fp32 output staging
-template <int D> __host__ __device__ constexpr int ld() { return D + 8; }
-template <int D> __host__ __device__ constexpr int lo() { return D + 4; }
-
-// rows [row0, row0 + 64) of one (batch, head) slice -> bf16 shared tile
-// [64][ld]; rows past n_valid are zero. 16-byte loads when the slice's
-// base and row stride allow them (every layout the models pass does)
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
-                                          long long row_stride, int row0,
-                                          int n_valid) {
-  constexpr int kChunks = D / 8;           // 16-byte chunks per row
-  if (((reinterpret_cast<uintptr_t>(base) |
-        static_cast<uintptr_t>(row_stride * sizeof(bf16))) & 15) == 0) {
-    for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (r < n_valid)
-        x = *reinterpret_cast<const uint4*>(
-            base + (long long)(row0 + r) * row_stride + c);
-      *reinterpret_cast<uint4*>(dst + r * ld<D>() + c) = x;
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * ld<D>() + c] = r < n_valid
-        ? base[(long long)(row0 + r) * row_stride + c]
-        : __float2bfloat16(0.f);
-  }
-}
-
-// out[16][64] (fp32, row stride kLS) = A[16][D] . B[64][D]^T: the warp's
-// 16 rows of A against the 64 rows of B, both bf16 row-major
-template <int D>
-__device__ __forceinline__ void scores(float* out, const bf16* a,
-                                       const bf16* b) {
-#pragma unroll
-  for (int n = 0; n < kBK / 16; ++n) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, ld<D>());
-      wmma::load_matrix_sync(fb, b + n * 16 * ld<D>() + kk * 16, ld<D>());
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(out + n * 16, c, kLS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += A[16][64] . B[64][D] (A bf16 with row stride kLB, B bf16
-// row-major): the k-major products dS.K, P^T.dO, dS^T.Q
-template <int D>
-__device__ __forceinline__ void accumulate(FragC (&acc)[D / 16],
-                                           const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < 64 / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, kLB);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * ld<D>() + n * 16, ld<D>());
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// the warp's accumulators -> bf16 rows [row0, row0 + 16) of a contiguous
-// [b, len, heads, D] output, through the warp's fp32 staging rows
-template <int D>
-__device__ __forceinline__ void store_rows(FragC (&acc)[D / 16],
-                                           float* stage, bf16* out,
-                                           const Params& p, int b, int h,
-                                           int len, int row0, int lane) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(stage + n * 16, acc[n], lo<D>(),
-                            wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane / 2, half = lane % 2;   // columns 2j + half
-  if (row0 + r < len) {
-    bf16* dst = out + (((long long)b * len + row0 + r) * p.heads + h) * D;
-    for (int j = 0; j < D / 2; ++j)
-      dst[2 * j + half] =
-          __float2bfloat16(stage[r * lo<D>() + 2 * j + half]);
-  }
-  __syncwarp();
-}
-
-template <int D>
-size_t smem_bytes(Kind kind) {
-  const size_t tile = 64 * ld<D>() * sizeof(bf16);
-  const size_t prob = 64 * kLB * sizeof(bf16), score = 64 * kLS * 4;
-  if (kind == kDq) return 4 * tile + prob + 2 * score;
-  return 4 * tile + 2 * prob + 2 * score + 2 * 64 * 4;
-}
-
-template <int D, class Walk>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);     // [64][ld]
-  bf16* do_s = q_s + 64 * ld<D>();
-  bf16* k_s = do_s + 64 * ld<D>();
-  bf16* v_s = k_s + 64 * ld<D>();
-  bf16* ds_s = v_s + 64 * ld<D>();                   // [64][kLB]
-  float* s_s = reinterpret_cast<float*>(ds_s + 64 * kLB);  // [64][kLS]
-  float* dp_s = s_s + 64 * kLS;                      // [64][kLS]
-
-  Walk walk(p, false);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = warp * 16, rl = r0 + lane / 2, half = lane % 2;
-  const int q0 = walk.own0, bh = walk.bh;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const int offset = p.lk - p.lq, row = q0 + rl;
-  load_tile<D>(q_s, static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh,
-               p.q_sl, q0, p.lq - q0);
-  load_tile<D>(do_s,
-               static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh,
-               p.do_sl, q0, p.lq - q0);
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const long long at = (long long)bh * p.lq + row;
-  const float lse = row < p.lq ? p.lse[at] : kNegInf;
-  const float delta = row < p.lq ? p.delta[at] : 0.f;
-  const bool live = lse > 0.5f * kNegInf;
-  FragC dq[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq[n], 0.f);
-
-  int k0 = 0;
-  while (walk.next(k0)) {
-    __syncthreads();
-    load_tile<D>(k_s, kb, p.k_sl, k0, p.lk - k0);
-    load_tile<D>(v_s, vb, p.v_sl, k0, p.lk - k0);
-    __syncthreads();
-    scores<D>(s_s + r0 * kLS, q_s + r0 * ld<D>(), k_s);
-    scores<D>(dp_s + r0 * kLS, do_s + r0 * ld<D>(), v_s);
-    __syncwarp();
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + half, col = k0 + c;
-      const bool ok = live && col < p.lk &&
-                      (!p.causal || col <= row + offset) &&
-                      walk.ok(row, col);
-      const float pr = ok ? expf(s_s[rl * kLS + c] * p.scale - lse) : 0.f;
-      ds_s[rl * kLB + c] = __float2bfloat16(
-          pr * (dp_s[rl * kLS + c] - delta) * p.scale);
-    }
-    __syncwarp();
-    accumulate<D>(dq, ds_s + r0 * kLB, k_s);
-  }
-  __syncthreads();                     // the staging rows reuse s_s/dp_s
-  store_rows<D>(dq, s_s + r0 * lo<D>(), static_cast<bf16*>(p.dq), p, b, h,
-                p.lq, q0 + r0, lane);
-}
-
-// rows are keys, columns queries: S^T = K.Q^T and dP^T = V.dO^T, then
-// dV += P^T.dO and dK += dS^T.Q over every query tile
-template <int D, class Walk>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);     // [64][ld]
-  bf16* v_s = k_s + 64 * ld<D>();
-  bf16* q_s = v_s + 64 * ld<D>();
-  bf16* do_s = q_s + 64 * ld<D>();
-  bf16* pt_s = do_s + 64 * ld<D>();                  // [64][kLB]
-  bf16* dst_s = pt_s + 64 * kLB;                     // [64][kLB]
-  float* st_s = reinterpret_cast<float*>(dst_s + 64 * kLB);  // [64][kLS]
-  float* dpt_s = st_s + 64 * kLS;                    // [64][kLS]
-  float* lse_s = dpt_s + 64 * kLS;                   // [64]
-  float* delta_s = lse_s + 64;                       // [64]
-
-  Walk walk(p, true);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = warp * 16, rl = r0 + lane / 2, half = lane % 2;
-  const int k0 = walk.own0, bh = walk.bh;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const int offset = p.lk - p.lq, key = k0 + rl;
-  load_tile<D>(k_s, static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh,
-               p.k_sl, k0, p.lk - k0);
-  load_tile<D>(v_s, static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh,
-               p.v_sl, k0, p.lk - k0);
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* dob =
-      static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  FragC dk[D / 16], dv[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk[n], 0.f);
-    wmma::fill_fragment(dv[n], 0.f);
-  }
-
-  int q0 = 0;
-  while (walk.next(q0)) {
-    __syncthreads();
-    load_tile<D>(q_s, qb, p.q_sl, q0, p.lq - q0);
-    load_tile<D>(do_s, dob, p.do_sl, q0, p.lq - q0);
-    for (int i = tid; i < kBQ; i += kThreads) {
-      const bool in = q0 + i < p.lq;
-      const long long at = (long long)bh * p.lq + q0 + i;
-      lse_s[i] = in ? p.lse[at] : kNegInf;
-      delta_s[i] = in ? p.delta[at] : 0.f;
-    }
-    __syncthreads();
-    scores<D>(st_s + r0 * kLS, k_s + r0 * ld<D>(), q_s);
-    scores<D>(dpt_s + r0 * kLS, v_s + r0 * ld<D>(), do_s);
-    __syncwarp();
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + half, row = q0 + c;
-      const float lse = lse_s[c];
-      const bool ok = lse > 0.5f * kNegInf && key < p.lk && row < p.lq &&
-                      (!p.causal || key <= row + offset) &&
-                      walk.ok(key, row);
-      const float pr = ok ? expf(st_s[rl * kLS + c] * p.scale - lse) : 0.f;
-      pt_s[rl * kLB + c] = __float2bfloat16(pr);
-      dst_s[rl * kLB + c] = __float2bfloat16(
-          pr * (dpt_s[rl * kLS + c] - delta_s[c]) * p.scale);
-    }
-    __syncwarp();
-    accumulate<D>(dv, pt_s + r0 * kLB, do_s);
-    accumulate<D>(dk, dst_s + r0 * kLB, q_s);
-  }
-  __syncthreads();                     // the staging rows reuse st_s/dpt_s
-  float* stage = st_s + r0 * lo<D>();
-  store_rows<D>(dk, stage, static_cast<bf16*>(p.dk), p, b, h, p.lk,
-                k0 + r0, lane);
-  store_rows<D>(dv, stage, static_cast<bf16*>(p.dv), p, b, h, p.lk,
-                k0 + r0, lane);
-}
-
-}  // namespace tc
-
 // ------------------------------------------- bf16 forward for Hopper (hw)
 // flash_fwd_wgmma_kernel: one block of a consumer warpgroup and a
 // producer warp owns 64 query rows.
@@ -723,7 +467,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 //     diagonal or the ragged edge of the keys, or whose walk says that
 //     not all of the tile is live (Walk::full);
 //   - two blocks fit an SM at every head dim (registers: 147 a thread at
-//     d 128 under a 204 ceiling; shared memory: 81 KB at d 128, 57 KB at
+//     d 128 under a 168 ceiling; shared memory: 81 KB at d 128, 57 KB at
 //     d 64). A producer warpgroup that hands its registers to the
 //     consumers (setmaxnreg) was measured and dropped: ptxas still held
 //     the consumers to the launch ceiling of a 256-thread block (128 at
@@ -736,7 +480,7 @@ namespace hw {
 
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kFwdThreads = 160;    // consumer warpgroup + producer warp
+constexpr int kHwThreads = 160;    // consumer warpgroup + producer warp
 
 template <int D>
 struct FwdCfg {
@@ -885,6 +629,31 @@ __device__ __forceinline__ void wgmma_ss_n64(
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d[32] = A . B^T, m64n64k16, both K-major: the first k-step of a
+// product, which overwrites d; d is an output only, so its old values
+// need not stay live in registers up to the issue
+__device__ __forceinline__ void wgmma_ss_n64_first(
+    float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0));
+}
+
 // d[16] += A . B, m64n32k16: A (bf16 pairs) from registers, B from
 // shared memory, MN-major (the transpose flag)
 __device__ __forceinline__ void wgmma_rs_n32(
@@ -986,7 +755,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int D, class Walk>
-__global__ void __launch_bounds__(kFwdThreads, FwdCfg<D>::kMinBlocks)
+__global__ void __launch_bounds__(kHwThreads, FwdCfg<D>::kMinBlocks)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
@@ -1254,6 +1023,381 @@ __global__ void __launch_bounds__(kFwdThreads, FwdCfg<D>::kMinBlocks)
   }
 }
 
+// ------------------------------------------ bf16 backward for Hopper (hw)
+// flash_bwd_dq_wgmma_kernel (a block owns 64 query rows and walks key
+// tiles) and flash_bwd_dkv_wgmma_kernel (64 key rows, walks query tiles)
+// share one body, flash_bwd_wgmma, and the forward's block: a consumer
+// warpgroup and a producer warp.
+//   - the producer warp loads the block's own pair of tiles once (Q and
+//     dO, or K and V), then keeps kStages stages of the walked pair in
+//     flight by TMA (K and V, or Q and dO), one full and one empty
+//     barrier a stage: a stage is free once the products that read it are
+//     done. For dkv its 32 lanes also load the query tile's lse and delta
+//     with ordinary loads and store them to the stage as the consumer
+//     uses them: lse times log2 e (+1e30 for a dead row or one past
+//     q_len, so that its p is 2^-1e30 = 0) and delta times scale;
+//   - the consumer warpgroup runs the two score-side products as wgmma
+//     m64n64k16, both operands K-major in shared memory (dq: S = Q.K^T
+//     and dP = dO.V^T; dkv: S^T = K.Q^T and dP^T = V.dO^T), makes p and ds
+//     from their accumulator registers (p = 2^(s scale log2 e -
+//     lse log2 e), ds = p (dp scale - delta scale): one ex2 and three
+//     FMA-pipe operations an entry), packs them to bf16 straight into A
+//     operand registers and runs the accumulating products from registers
+//     with the walked tile MN-major (the transpose flag): dQ += dS.K, or
+//     dV += P^T.dO and dK += dS^T.Q; the sums stay in registers to the end;
+//   - each block runs its tiles in order (scores, p / ds, products) and
+//     the blocks sharing an SM overlap one another: three an SM for dq at
+//     d <= 64 (128 registers a thread), two for dq at d 128 and dkv at
+//     d <= 64 (168: two 160-thread blocks put three warps on one of the
+//     SM's four 16K-register files), one for dkv at d 128 (dK and dV
+//     alone take 128 registers); at d 64 an indexed walk (SparseWalk,
+//     whose mask reads fine bits) takes one block fewer, since its mask
+//     arithmetic tipped both kernels over those ceilings. Issuing tile
+//     t's score-side products with tile t-1's accumulating ones, as the
+//     forward does, needs S, dP and the packed p / ds live at once: 32 to
+//     64 registers more, which spilled at two blocks an SM or ran slower
+//     at one (PERF.md);
+//   - the mask arithmetic runs only on tiles that cross the causal
+//     diagonal or the ragged edge of the keys, or that the walk does not
+//     fully admit; query rows past q_len need no mask: TMA zero-fills
+//     their Q and dO, and their lse marks them dead;
+//   - no atomics: a block writes only its own rows, each sum is taken in
+//     the walk's fixed order, so two runs give the same bits.
+template <int D, bool kKeysOwn, bool kIndexed>
+struct BwdCfg {
+  static constexpr int kTileBytes = FwdCfg<D>::kTileBytes;
+  static constexpr int kFewer = D == 128 || (kIndexed && D == 64) ? 1 : 0;
+  static constexpr int kMinBlocks = (kKeysOwn ? 2 : 3) - kFewer;  // per SM
+  static constexpr int kStages = D == 128 && !kKeysOwn ? 2 : 3;
+  static constexpr int kStatBytes = kKeysOwn ? 2 * kBQ * 4 : 0;  // lse, delta
+  // the 1024-byte alignment slack, the own pair, the ring of walked pairs,
+  // their lse / delta, their tiles' int4, 1 + 2 x kStages barriers
+  static constexpr int kSmem = 1024 + kTileBytes * (2 + 2 * kStages) +
+                               (kStatBytes + 16) * kStages +
+                               8 * (1 + 2 * kStages);
+};
+
+// the tx-count of the phase grows by `bytes` of TMA copies (no arrival)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+template <int D, bool kKeysOwn, class Walk>
+__device__ __forceinline__ void flash_bwd_wgmma(const CUtensorMap& map_q,
+                                                const CUtensorMap& map_k,
+                                                const CUtensorMap& map_v,
+                                                const CUtensorMap& map_do,
+                                                const Params& p) {
+  using C = BwdCfg<D, kKeysOwn, Walk::kIndexed>;
+  using F = FwdCfg<D>;
+  constexpr int S = C::kStages;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* base =
+      bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
+  unsigned char* own = base;                     // 2 tiles, boxed
+  unsigned char* ring = own + 2 * C::kTileBytes; // stage st: 2 st, 2 st + 1
+  float* stats =                                 // stage st: lse, delta
+      reinterpret_cast<float*>(ring + 2 * S * C::kTileBytes);
+  // stage st's tile: its first row (-1: the walk is done) and
+  // walk.entry(), published by the producer so that the consumer's walk
+  // keeps no state of its own through the loop
+  int4* tiles = reinterpret_cast<int4*>(
+      reinterpret_cast<unsigned char*>(stats) + S * C::kStatBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(tiles + S);
+  uint64_t* own_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + S;          // the stage's products are done
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(own_full, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(&full[st], 32);        // every producer lane
+      mbar_init(&empty[st], 128);      // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  Walk walk(p, kKeysOwn);
+  const int own0 = walk.own0, bh = walk.bh;
+
+  if (tid >= 128) {                     // ---- producer warp
+    const int lane = tid - 128;
+    const int b = bh / p.heads, h = bh % p.heads;
+    auto load = [&](unsigned char* dst, const CUtensorMap* map,
+                    uint64_t* bar, int row0) {
+#pragma unroll
+      for (int x = 0; x < D / F::kBox; ++x)
+        tma_load(dst + x * F::kBoxBytes, map, bar, x * F::kBox, h, row0, b);
+    };
+    if (lane == 0) {
+      mbar_arrive_expect(own_full, 2 * C::kTileBytes);
+      load(own, kKeysOwn ? &map_k : &map_q, own_full, own0);
+      load(own + C::kTileBytes, kKeysOwn ? &map_v : &map_do, own_full,
+           own0);
+    }
+    int o0 = 0, st = 0, round = 0;
+    for (;;) {
+      const bool more = walk.next(o0);
+      if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
+      if (lane == 0) {
+        const int2 entry = walk.entry();
+        tiles[st] = make_int4(more ? o0 : -1, entry.x, entry.y, 0);
+        if (more) {
+          unsigned char* dst = ring + 2 * st * C::kTileBytes;
+          mbar_expect_tx(&full[st], 2 * C::kTileBytes);
+          load(dst, kKeysOwn ? &map_q : &map_k, &full[st], o0);
+          load(dst + C::kTileBytes, kKeysOwn ? &map_do : &map_v,
+               &full[st], o0);
+        }
+      }
+      if constexpr (kKeysOwn) {        // rows o0 + 2 lane, + 1
+        if (more) {
+          float l[2], d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = o0 + 2 * lane + e;
+            const bool in = row < p.lq;
+            const long long at = (long long)bh * p.lq + row;
+            const float x = in ? p.lse[at] : kNegInf;
+            l[e] = x > 0.5f * kNegInf ? x * kLog2e : -kNegInf;
+            d[e] = in ? p.delta[at] * p.scale : 0.f;
+          }
+          float* dst = stats + 2 * kBQ * st + 2 * lane;
+          *reinterpret_cast<float2*>(dst) = make_float2(l[0], l[1]);
+          *reinterpret_cast<float2*>(dst + kBQ) = make_float2(d[0], d[1]);
+        }
+      }
+      mbar_arrive(&full[st]);          // release: the stores above
+      if (!more) break;
+      if (++st == S) {
+        st = 0;
+        ++round;
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: own rows row0 and row0 + 8 (i = 0, 1), walked
+  // columns 8 j + c and 8 j + c + 1 of every 8-column group j; what the
+  // epilogue alone needs is computed there, so it holds no register
+  // through the loop
+  const int lane = tid % 32;
+  const int row0 = own0 + 16 * (tid / 32) + lane / 4, c = 2 * (lane % 4);
+  const float scale_log2 = p.scale * kLog2e;
+  // dq: the rows' lse and delta as the producer stages them for dkv (lse
+  // times log2 e, +1e30 for a dead row; delta times scale)
+  float lse2[2] = {0.f, 0.f}, dls[2] = {0.f, 0.f};
+  if constexpr (!kKeysOwn) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long at = (long long)bh * p.lq + row0 + 8 * i;
+      const bool in = row0 + 8 * i < p.lq;
+      const float l = in ? p.lse[at] : kNegInf;
+      lse2[i] = l > 0.5f * kNegInf ? l * kLog2e : -kNegInf;
+      dls[i] = in ? p.delta[at] * p.scale : 0.f;
+    }
+  }
+  // dx: dQ or dK; dv: dV (dkv only); s, dp: the score-side products;
+  // pds, pp: ds and p as bf16 A operands
+  float dx[D / 2], dv[kKeysOwn ? D / 2 : 1], s[32], dp[32];
+  uint32_t pds[16], pp[kKeysOwn ? 16 : 1];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dx[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kKeysOwn ? D / 2 : 1); ++i) dv[i] = 0.f;
+  const uint32_t own_addr = smem_u32(own);
+  mbar_wait(own_full, 0);
+
+  // dq: S = Q.K^T and dP = dO.V^T; dkv: S^T = K.Q^T and dP^T = V.dO^T,
+  // of the walked pair in stage st, issued (not waited for)
+  auto issue_scores = [&](int st) {
+    const uint32_t w = smem_u32(ring + 2 * st * C::kTileBytes);
+    wgmma_ss_n64_first(s, desc_kmajor<D>(own_addr, 0), desc_kmajor<D>(w, 0));
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor<D>(own_addr, kk), desc_kmajor<D>(w, kk),
+                   1);
+    const uint32_t a1 = own_addr + C::kTileBytes, w1 = w + C::kTileBytes;
+    wgmma_ss_n64_first(dp, desc_kmajor<D>(a1, 0), desc_kmajor<D>(w1, 0));
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_kmajor<D>(a1, kk), desc_kmajor<D>(w1, kk), 1);
+    wg_commit();
+  };
+  // dq: dQ += dS.K; dkv: dV += P^T.dO and dK += dS^T.Q; the walked tile is
+  // the MN-major B
+  auto issue_grads = [&](int st) {
+    const uint32_t w = smem_u32(ring + 2 * st * C::kTileBytes);
+    if constexpr (kKeysOwn) {
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        const uint32_t a[4] = {pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2],
+                               pp[4 * kk + 3]};
+        wgmma_rs<D>(dv, a, desc_mnmajor<D>(w + C::kTileBytes, kk));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t a[4] = {pds[4 * kk], pds[4 * kk + 1], pds[4 * kk + 2],
+                             pds[4 * kk + 3]};
+      wgmma_rs<D>(dx, a, desc_mnmajor<D>(w, kk));
+    }
+    wg_commit();
+  };
+  // p and ds of the walked tile at o0 (stage st) from s and dp, packed
+  // to bf16 A operands, one 8-column group at a time (dkv reads the
+  // group's lse and delta there); the mask arithmetic is compiled into a
+  // second copy of the loop that only masked tiles run. s[4 j + 2 i + e],
+  // dp[...]: row row0 + 8 i, column o0 + 8 j + c + e; pds[2 j + i] packs its
+  // e = 0, 1. dkv packs p and ds as they are made, which frees s and dp
+  // early (it also holds dK and dV); dq keeps ds in dp and packs it after
+  // the loop, which ptxas fits in the 128 registers of three blocks an SM
+  // (packing as made spilled there)
+  auto make_p_ds = [&](int o0, int st) {
+    auto run = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float l2[2] = {lse2[0], lse2[1]}, dl[2] = {dls[0], dls[1]};
+        if constexpr (kKeysOwn) {      // by column e, not by row
+          const float* col = stats + 2 * kBQ * st + 8 * j + c;
+          const float2 l = *reinterpret_cast<const float2*>(col);
+          const float2 d = *reinterpret_cast<const float2*>(col + kBQ);
+          l2[0] = l.x;
+          l2[1] = l.y;
+          dl[0] = d.x;
+          dl[1] = d.y;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float pr[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int at = 4 * j + 2 * i + e, k = kKeysOwn ? e : i;
+            pr[e] = ex2(fmaf(s[at], scale_log2, -l2[k]));
+            if constexpr (decltype(masked)::value) {
+              const int row = row0 + 8 * i, col = o0 + 8 * j + c + e;
+              const int offset = p.lk - p.lq;
+              const bool ok =
+                  kKeysOwn ? (!p.causal || row <= col + offset) &&
+                                 walk.ok(row, col)
+                           : col < p.lk &&
+                                 (!p.causal || col <= row + offset) &&
+                                 walk.ok(row, col);
+              if (!ok) pr[e] = 0.f;
+            }
+            ds[e] = pr[e] * fmaf(dp[at], p.scale, -dl[k]);
+          }
+          if constexpr (kKeysOwn) {
+            pds[2 * j + i] = pack_bf16(ds[0], ds[1]);
+            pp[2 * j + i] = pack_bf16(pr[0], pr[1]);
+          } else {
+            dp[4 * j + 2 * i] = ds[0];
+            dp[4 * j + 2 * i + 1] = ds[1];
+          }
+        }
+      }
+    };
+    const int offset = p.lk - p.lq;
+    const bool masked =
+        kKeysOwn ? (p.causal && own0 + kBQ - 1 > o0 + offset) ||
+                       !walk.full(own0, o0)
+                 : o0 + kBK > p.lk ||
+                       (p.causal && o0 + kBK - 1 > own0 + offset) ||
+                       !walk.full(own0, o0);
+    if (masked)
+      run(std::true_type{});
+    else
+      run(std::false_type{});
+    if constexpr (!kKeysOwn) {
+#pragma unroll
+      for (int t = 0; t < 16; ++t) pds[t] = pack_bf16(dp[2 * t], dp[2 * t + 1]);
+    }
+  };
+
+  // tiles in order, as the producer publishes them; the fences pin the
+  // registers an asynchronous wgmma owns at the fence / wait that bounds it
+  int st = 0;
+  unsigned phase = 0;
+  for (;;) {
+    mbar_wait(&full[st], phase);
+    const int4 tile = tiles[st];
+    const int o0 = tile.x;
+    if (o0 < 0) break;
+    walk.enter(make_int2(tile.y, tile.z));
+    wg_fence();
+    issue_scores(st);
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    make_p_ds(o0, st);
+    fence_regs(dx);
+    fence_regs(dv);
+    fence_regs(pds);
+    fence_regs(pp);
+    wg_fence();
+    issue_grads(st);
+    wg_wait<0>();
+    fence_regs(dx);
+    fence_regs(dv);
+    fence_regs(pds);
+    fence_regs(pp);
+    mbar_arrive(&empty[st]);
+    if (++st == S) {
+      st = 0;
+      phase ^= 1;
+    }
+  }
+
+  const int len = kKeysOwn ? p.lk : p.lq;
+  const int b = bh / p.heads, h = bh % p.heads;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row < len) {
+      const long long at =
+          (((long long)b * len + row) * p.heads + h) * D + c;
+      bf16* gx = static_cast<bf16*>(kKeysOwn ? p.dk : p.dq) + at;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(gx + 8 * j) =
+            pack_bf16(dx[4 * j + 2 * i], dx[4 * j + 2 * i + 1]);
+      if constexpr (kKeysOwn) {
+        bf16* gv = static_cast<bf16*>(p.dv) + at;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(gv + 8 * j) =
+              pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int D, class Walk>
+__global__ void __launch_bounds__(
+    kHwThreads, BwdCfg<D, false, Walk::kIndexed>::kMinBlocks)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const Params p) {
+  flash_bwd_wgmma<D, false, Walk>(map_q, map_k, map_v, map_do, p);
+}
+
+template <int D, class Walk>
+__global__ void __launch_bounds__(
+    kHwThreads, BwdCfg<D, true, Walk::kIndexed>::kMinBlocks)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const Params p) {
+  flash_bwd_wgmma<D, true, Walk>(map_q, map_k, map_v, map_do, p);
+}
+
 // the tensor map of one [batch, len, heads, D] bf16 operand: dims (d,
 // head, position, batch), strides rising, box (kBox, 1, 64, 1); a dim of
 // extent 1 takes the stride a contiguous tensor would give it
@@ -1306,8 +1450,24 @@ bool encode_map(CUtensorMap* map, const void* ptr, int batch, int len,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// builds the three maps on the host (no stream operation: safe while a
-// CUDA graph is captured; the maps travel by value in the launch)
+// a kernel's dynamic shared memory above 48 KB and the largest carveout,
+// once per instantiation (not a stream operation, so it is also safe
+// while a CUDA graph is captured)
+template <class Kernel>
+cudaError_t opt_in(Kernel kern, int smem, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  done = e == cudaSuccess;
+  return e;
+}
+
+// builds the maps on the host (no stream operation: safe while a CUDA
+// graph is captured; the maps travel by value in the launch)
 template <int D, class Walk>
 cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t stream) {
   using C = FwdCfg<D>;
@@ -1322,19 +1482,45 @@ cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   auto kern = flash_fwd_wgmma_kernel<D, Walk>;
   static bool opted_in = false;
-  if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
+  const cudaError_t e = opt_in(kern, C::kSmem, opted_in);
+  if (e != cudaSuccess) return e;
   const dim3 grid = Walk::grid(p, batch, false);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  kern<<<grid, kFwdThreads, C::kSmem, stream>>>(mq, mk, mv, p);
+  kern<<<grid, kHwThreads, C::kSmem, stream>>>(mq, mk, mv, p);
+  return cudaGetLastError();
+}
+
+// the dq (kind kDq) or dkv kernel
+template <int D, class Walk>
+cudaError_t launch_bwd(Kind kind, const Params& p, int batch,
+                       cudaStream_t stream) {
+  if (p.lk <= 0) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!encode_map<D>(&mq, p.q, batch, p.lq, p.heads, p.q_sb, p.q_sl,
+                     p.q_sh) ||
+      !encode_map<D>(&mk, p.k, batch, p.lk, p.heads, p.k_sb, p.k_sl,
+                     p.k_sh) ||
+      !encode_map<D>(&mv, p.v, batch, p.lk, p.heads, p.v_sb, p.v_sl,
+                     p.v_sh) ||
+      !encode_map<D>(&mdo, p.dout, batch, p.lq, p.heads, p.do_sb, p.do_sl,
+                     p.do_sh))
+    return cudaErrorInvalidValue;
+  const dim3 grid = Walk::grid(p, batch, kind == kDkv);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  cudaError_t e;
+  if (kind == kDq) {
+    constexpr int smem = BwdCfg<D, false, Walk::kIndexed>::kSmem;
+    auto kern = flash_bwd_dq_wgmma_kernel<D, Walk>;
+    static bool opted_in = false;
+    if ((e = opt_in(kern, smem, opted_in)) != cudaSuccess) return e;
+    kern<<<grid, kHwThreads, smem, stream>>>(mq, mk, mv, mdo, p);
+  } else {
+    constexpr int smem = BwdCfg<D, true, Walk::kIndexed>::kSmem;
+    auto kern = flash_bwd_dkv_wgmma_kernel<D, Walk>;
+    static bool opted_in = false;
+    if ((e = opt_in(kern, smem, opted_in)) != cudaSuccess) return e;
+    kern<<<grid, kHwThreads, smem, stream>>>(mq, mk, mv, mdo, p);
+  }
   return cudaGetLastError();
 }
 
@@ -1350,37 +1536,34 @@ size_t smem_bytes(Kind kind) {
   return sizeof(float) * (4 * tile + 2 * scores + 2 * kBQ);
 }
 
-// bf16: the forward on hw::, the backward on tc::; fp32 on the scalar
-// kernels
+// bf16 on the Hopper kernels (hw::); fp32 on the scalar kernels
 template <typename T, int D, class Walk>
 cudaError_t launch(Kind kind, const Params& p, int batch,
                    cudaStream_t stream) {
-  void (*kern)(const Params);
-  size_t smem;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (kind == kFwd) return hw::launch_fwd<D, Walk>(p, batch, stream);
-    kern = kind == kDq ? tc::flash_bwd_dq_kernel<D, Walk>
-                       : tc::flash_bwd_dkv_kernel<D, Walk>;
-    smem = tc::smem_bytes<D>(kind);
+    return kind == kFwd ? hw::launch_fwd<D, Walk>(p, batch, stream)
+                        : hw::launch_bwd<D, Walk>(kind, p, batch, stream);
   } else {
-    kern = kind == kFwd  ? flash_fwd_kernel<D, Walk>
-           : kind == kDq ? flash_bwd_dq_kernel<D, Walk>
-                         : flash_bwd_dkv_kernel<D, Walk>;
-    smem = smem_bytes<D>(kind);
+    void (*kern)(const Params) =
+        kind == kFwd  ? flash_fwd_kernel<D, Walk>
+        : kind == kDq ? flash_bwd_dq_kernel<D, Walk>
+                      : flash_bwd_dkv_kernel<D, Walk>;
+    const size_t smem = smem_bytes<D>(kind);
+    // above 48 KB a kernel must opt in; done once per instantiation (not
+    // a stream operation, so it is also safe while a CUDA graph is
+    // captured)
+    static bool opted_in[3] = {false, false, false};
+    if (!opted_in[kind]) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      opted_in[kind] = true;
+    }
+    const dim3 grid = Walk::grid(p, batch, kind == kDkv);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    kern<<<grid, kThreads, smem, stream>>>(p);
+    return cudaGetLastError();
   }
-  // above 48 KB a kernel must opt in; done once per instantiation (not a
-  // stream operation, so it is also safe while a CUDA graph is captured)
-  static bool opted_in[3] = {false, false, false};
-  if (!opted_in[kind]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    opted_in[kind] = true;
-  }
-  const dim3 grid = Walk::grid(p, batch, kind == kDkv);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  kern<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
 }
 
 template <typename T, class Walk>

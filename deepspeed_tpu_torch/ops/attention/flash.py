@@ -9,6 +9,12 @@ logsumexp), and the FlashAttention-2 backward pair ``flash_bwd_dq`` /
 a plain PyTorch version beside it (:func:`flash_fwd_plain`,
 :func:`flash_bwd_plain`) with the same inputs, outputs and numerics.
 
+In bf16 all three are Hopper kernels (TMA, ``wgmma``): the backward pair
+loads each block's own tiles once, keeps the tiles it walks in a TMA
+ring, and makes p and ds in registers; the wrapper hands it q, k, v and
+do by :func:`tma_ok`'s copy rule.  Neither kernel of the pair uses
+atomics, so two runs give the same bits.
+
 The dispatch rule is PR 1's (``decode.py``): a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises.  Block sizes are
 the kernel's own choice: the JAX ``block_q`` / ``block_k`` arguments and
@@ -70,8 +76,12 @@ def _scores(q, k, causal, scale, mask=None):
 
 def _delta(o, do, dlse):
     """sum(do * o) over the head dim, minus the lse cotangent:
-    [b, h, lq] fp32 (``flash.py:429-434``)."""
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    [b, h, lq] fp32 (``flash.py:429-434``).  The products are taken in
+    fp32 (exact for bf16 inputs) by one pass over do and o as they are:
+    addcmul onto a one-element fp32 zero promotes to fp32 without fp32
+    copies of either."""
+    zero = torch.zeros(1, dtype=torch.float32, device=do.device)
+    delta = torch.addcmul(zero, do, o).sum(-1).transpose(1, 2)
     if dlse is not None:
         delta = delta - dlse.float()
     return delta.contiguous()
@@ -149,7 +159,7 @@ def _rows(x):
 
 
 def tma_ok(shape, strides, data_ptr, elem_size):
-    """Whether the bf16 forward's tensor maps read a ``[b, len, heads,
+    """Whether the bf16 kernels' tensor maps read a ``[b, len, heads,
     d]`` operand with these element ``strides`` in place: TMA wants a
     16-byte aligned base, a unit head-dim stride, and for every other
     dim with more than one entry a stride that is a whole number of 16
@@ -169,17 +179,18 @@ def tma_ok(shape, strides, data_ptr, elem_size):
     return True
 
 
-def _fwd_operands(q, k, v):
-    """q, k, v as the forward kernels read them: unit head-dim strides,
-    and for bf16 (read by TMA) a contiguous copy of an operand that
+def _tma_operands(*ts):
+    """The ``[b, len, heads, d]`` operands (q, k, v, and do for the
+    backward) as the kernels read them: unit head-dim strides, and for
+    bf16 (read by TMA) a contiguous copy of an operand that
     :func:`tma_ok` refuses.  A copy, not a fallback: the kernel runs."""
-    q, k, v = _rows(q), _rows(k), _rows(v)
-    if q.dtype != torch.bfloat16:
-        return q, k, v
+    ts = tuple(_rows(t) for t in ts)
+    if ts[0].dtype != torch.bfloat16:
+        return ts
     return tuple(
         t if tma_ok(t.shape, t.stride(), t.data_ptr(), t.element_size())
         else t.contiguous() if not t.is_contiguous() else t.clone()
-        for t in (q, k, v))
+        for t in ts)
 
 
 def _strides(*ts):
@@ -198,7 +209,7 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     _check_cuda("flash_fwd", q, k, v)
-    q, k, v = _fwd_operands(q, k, v)
+    q, k, v = _tma_operands(q, k, v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     o = torch.empty(b, lq, h, d, dtype=q.dtype, device=q.device)
@@ -219,12 +230,12 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
 
 
 def _bwd_inputs(q, k, v, o, lse, do, dlse, name="flash_bwd"):
-    """The backward kernels' checked inputs: (q, k, v, do) with unit
-    head-dim strides, lse and the delta pre-pass ``sum(do * o) - dlse``
-    as contiguous fp32 [b, h, lq] (plain tensor code, as in the JAX
-    package)."""
+    """The backward kernels' checked inputs: (q, k, v, do) as
+    :func:`_tma_operands` gives them, lse and the delta pre-pass
+    ``sum(do * o) - dlse`` as contiguous fp32 [b, h, lq] (plain tensor
+    code, as in the JAX package)."""
     _check_cuda(name, q, k, v, o, do)
-    q, k, v, do = _rows(q), _rows(k), _rows(v), _rows(do)
+    q, k, v, do = _tma_operands(q, k, v, do)
     b, lq, h, _ = q.shape
     lse = lse.float().contiguous()
     delta = _delta(o, do, dlse)

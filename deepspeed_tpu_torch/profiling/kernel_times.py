@@ -6,7 +6,8 @@ Times, by CUDA-graph replay over two rotated bf16 input sets (cold L2):
 ``decode_fwd`` at the Llama-2-7B generate cache (1 x 256 keys, 32 heads,
 d 128, position 215), ``flash_fwd`` at GPT-2 training (b 8 h 12 l 1024
 d 64 causal), b 1 h 12 l 4096 and Llama-2-7B heads (b 1 h 32 l 2048 d
-128), and the backward pair (``flash_bwd``) at the first two. It imports
+128), and the backward (``flash_bwd``: the delta pre-pass and the
+dq / dkv pair) at all three. It imports
 ``deepspeed_tpu_torch`` from the Python path, so running it as a file
 with ``PYTHONPATH`` set to another checkout times that checkout's kernels
 (run parent, change, change, parent in one call to compare two commits
@@ -57,8 +58,6 @@ def main():
                       .to(bf16) for _ in range(4)) for _ in range(2)]
         out[f"flash_fwd_{name}"] = time_ms(
             [lambda s=s: fl.flash_fwd(*s[:3], causal=True) for s in sets])
-        if name == "e":
-            continue
         bwd = []
         for q, k, v, do in sets:
             o, lse = fl.flash_fwd(q, k, v, causal=True)

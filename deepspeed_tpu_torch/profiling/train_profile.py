@@ -29,8 +29,9 @@ import torch
 # kernel-name fragments -> category, first match wins
 CATEGORIES = (
     ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel")),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_wgmma_kernel",
+                       "flash_bwd_dkv_kernel")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "splitk")),
     ("optimizer", ("multi_tensor_apply", "foreach")),
     ("copies_casts", ("memcpy", "memset", "copy_kernel", "cat_")),

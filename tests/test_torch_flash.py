@@ -267,7 +267,7 @@ def test_tma_rule_decides_which_operands_go_in_without_a_copy(name, ok):
                          t.element_size()) is ok
     # what the bf16 forward is handed: the operand itself, or a copy
     # that the rule takes, with the same values
-    q, _, _ = tflash._fwd_operands(t, t, t)
+    q, _, _ = tflash._tma_operands(t, t, t)
     assert (q is t) is ok
     assert tflash.tma_ok(q.shape, q.stride(), q.data_ptr(),
                          q.element_size())
@@ -277,7 +277,7 @@ def test_tma_rule_decides_which_operands_go_in_without_a_copy(name, ok):
 def test_fp32_operands_are_never_copied():
     """The fp32 forward reads rows through three strides, not TMA."""
     t = torch.zeros(2, 4, 96, 64).transpose(1, 2)
-    assert all(x is t for x in tflash._fwd_operands(t, t, t))
+    assert all(x is t for x in tflash._tma_operands(t, t, t))
 
 
 # --------------------------------------------- the bf16 forward on the card
@@ -387,3 +387,167 @@ def test_forward_two_runs_bit_equal_and_graph_replay_equals_eager(cuda):
     torch.cuda.synchronize()
     o3, lse3 = tflash.flash_fwd(q, k, v)
     assert torch.equal(o, o3) and torch.equal(lse, lse3)
+
+
+# ------------------------------------------- the bf16 backward's host rules
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_delta_prepass_takes_exact_fp32_products(dtype):
+    """The delta pre-pass multiplies do and o in fp32 without fp32 copies
+    of either (addcmul onto a one-element fp32 zero): the same bits as
+    casting both first, [b, h, lq] contiguous."""
+    g = torch.Generator().manual_seed(8)
+    o, do = (torch.randn(2, 33, 3, 64, generator=g).to(dtype)
+             for _ in range(2))
+    dlse = torch.randn(2, 3, 33, generator=g)
+    got = tflash._delta(o, do, dlse)
+    want = (do.float() * o.float()).sum(-1).transpose(1, 2) - dlse
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+def test_backward_operands_follow_the_tma_rule():
+    """q, k, v and do go through the forward's copy rule: an operand that
+    TMA cannot read in place (a head-transposed do) is copied, the split
+    views of a fused qkv are not."""
+    q, k, v = _qkv_split()
+    do = torch.zeros(2, 4, 96, 64, dtype=torch.bfloat16).transpose(1, 2)
+    got = tflash._tma_operands(q, k, v, do)
+    assert [x is t for x, t in zip(got, (q, k, v, do))] == [True] * 3 + \
+        [False]
+    assert all(tflash.tma_ok(x.shape, x.stride(), x.data_ptr(),
+                             x.element_size()) for x in got)
+    assert torch.equal(got[3], do)
+
+
+# -------------------------------------------- the bf16 backward on the card
+
+
+def _check_bwd(cuda, seed, b, lq, lk, h, d, causal, dtype, tol, do=None):
+    """The backward pair against its plain version on one input set (the
+    plain forward's o / lse, a random lse cotangent); returns the grads."""
+    q, k, v = _card_inputs(cuda, seed, b, lq, lk, h, d, dtype)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    if do is None:
+        do = torch.randn(b, lq, h, d, device=cuda, generator=g).to(dtype)
+    dlse = torch.randn(b, h, lq, device=cuda, generator=g)
+    o, lse = tflash.flash_fwd_plain(q, k, v, causal=causal)
+    before = tflash.launch_counts()
+    got = tflash.flash_bwd(q, k, v, o, lse, do, dlse, causal=causal)
+    want = tflash.flash_bwd_plain(q, k, v, o, lse, do, dlse, causal=causal)
+    torch.cuda.synchronize()
+    after = tflash.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == w.shape and x.dtype == w.dtype, name
+        assert torch.isfinite(x.float()).all(), name
+        assert (x.float() - w.float()).abs().max().item() < tol, name
+    dead = ~(lse > tflash.NEG_INF / 2)          # [b, h, lq]
+    assert not got[0][dead.transpose(1, 2)].any()  # dead rows: dq = 0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("length", [1, 63, 65, 1000, 4097])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_ragged_lengths_on_card(cuda, length, causal, dtype, tol):
+    """Lengths off the 64-row tile: TMA zero-fills the ragged tile's Q /
+    dO / K / V, the padded lse marks the rows past q_len dead, and the
+    key mask covers the ragged key tile."""
+    _check_bwd(cuda, length, 1, length, length, 2, 64, causal, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("lq,lk", [(100, 300), (64, 1024), (300, 100),
+                                   (256, 64)])
+def test_backward_offsets_and_dead_rows_on_card(cuda, lq, lk, d, dtype, tol):
+    """Causal with lq < lk and lq > lk (the first lq - lk query rows see
+    no key: zero dq, no share of dk / dv), at every head dim: 64-byte
+    swizzle at d 32, two boxes a tile and dkv's in-order walk at d 128."""
+    _check_bwd(cuda, d + lq, 2, lq, lk, 3, d, True, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_head_dims_on_card(cuda, d, causal):
+    _check_bwd(cuda, d, 2, 777, 777, 4, d, causal, torch.bfloat16, 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv_split_views", "do_heads_transposed",
+                                    "do_misaligned_base"])
+def test_backward_takes_any_strided_operand_on_card(cuda, layout):
+    """The split views of a fused qkv projection go to TMA in place
+    (through autograd, as GPT-2 calls it); a do that the TMA rule refuses
+    is copied first; all agree with the plain version."""
+    b, l, h, d = 2, 300, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(13)
+    if layout == "qkv_split_views":
+        qkv = torch.randn(b, l, 3 * h * d, device=cuda, generator=g).to(
+            torch.bfloat16).requires_grad_()
+        q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
+        do = torch.randn(b, l, h, d, device=cuda, generator=g).to(
+            torch.bfloat16)
+        before = tflash.launch_counts()
+        tflash.flash_attention(q, k, v).backward(do)
+        o, lse = tflash.flash_fwd_plain(q, k, v)
+        want = torch.cat([x.reshape(b, l, h * d) for x in
+                          tflash.flash_bwd_plain(q, k, v, o, lse, do)], -1)
+        torch.cuda.synchronize()
+        after = tflash.launch_counts()
+        assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+        assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+        assert (qkv.grad.float() - want.float()).abs().max().item() < 3e-2
+        return
+    if layout == "do_heads_transposed":
+        do = torch.randn(b, h, l, d, device=cuda, generator=g).to(
+            torch.bfloat16).transpose(1, 2)
+    else:
+        do = (torch.randn(b * l * h * d + 4, device=cuda, generator=g)
+              .to(torch.bfloat16)[4:].view(b, l, h, d))
+    assert not tflash.tma_ok(do.shape, do.stride(), do.data_ptr(),
+                             do.element_size())
+    _check_bwd(cuda, 14, b, l, l, h, d, True, torch.bfloat16, 3e-2, do=do)
+
+
+@pytest.mark.cuda
+def test_backward_two_runs_bit_equal_and_graph_replay_equals_eager(cuda):
+    """No atomics: every block writes its own rows, each sum in the walk's
+    order, so two runs give the same bits; the tensor maps are built on
+    the host at capture, so a replayed CUDA graph gives the eager bits,
+    after new inputs too."""
+    q, k, v = _card_inputs(cuda, 21, 2, 1000, 1000, 4, 64)
+    do = _card_inputs(cuda, 22, 2, 1000, 1000, 4, 64)[0]
+    o, lse = tflash.flash_fwd(q, k, v)
+    g1 = tflash.flash_bwd(q, k, v, o, lse, do)
+    g2 = tflash.flash_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tflash.flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gg = tflash.flash_bwd(q, k, v, o, lse, do)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(gg, g1))
+    new = _card_inputs(cuda, 23, 2, 1000, 1000, 4, 64)
+    for t, n in zip((q, k, v), new):
+        t.copy_(n)
+    o2, lse2 = tflash.flash_fwd(q, k, v)
+    o.copy_(o2)
+    lse.copy_(lse2)
+    graph.replay()
+    torch.cuda.synchronize()
+    g3 = tflash.flash_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(gg, g3))
