@@ -13,12 +13,15 @@ Phases, each of which must pass (any failure exits nonzero):
      each kernel instantiation; no instantiation of the bf16 flash
      forward (flash_fwd_wgmma_kernel) or of the bf16 backward pair
      (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel; dense and
-     sparse walk, d 32 / 64 / 128) may spill;
+     sparse walk, d 32 / 64 / 128), of the decode kernel (paged and dense
+     walk) or of int8_matmul_kernel may spill;
   3. decode kernel phase: each decode kernel against its plain PyTorch
      version on the card, fp32 and bf16, at the serving path's shapes
      (Llama-2-7B heads, a 128-bucketed dense cache, GQA at Llama-2-70B
      head widths, and the dense cache at Falcon-7B's MQA heads, 71 over
-     1, d 64: five 16-head tiles), and at 32 slots x ~1024 keys for 7B heads,
+     1, d 64: five 16-head tiles; the dense cache also at 8 x 1024 and at
+     max_len 200, a last tile cut short, each with its split count and
+     share of its bound), and at 32 slots x ~1024 keys for 7B heads,
      70B heads and Falcon-7B's MQA heads (71 over 1 kv head, d 64), with
      its time, the plain version's, SDPA's over the same (gathered) K/V,
      the bandwidth bound and the kernel's share of it; the paged shapes
@@ -30,9 +33,10 @@ Phases, each of which must pass (any failure exits nonzero):
      (prefill chunk) and 1, group 64, bf16 and fp32, with its time, the
      plain version's, the bound, and F.linear on the FLOAT weight of the
      same shape (the layer this one replaces; no single PyTorch call
-     computes the quantized function); fp32 batch invariance: a row of
-     an m = 1 or m = 4 call equals that row of an m = 64 call bit for
-     bit;
+     computes the quantized function), each with its k split (the
+     blocks of a cluster); fp32 batch invariance: a row of an m = 1 or
+     m = 4 call equals that row of an m = 64 call bit for bit (a gate),
+     and the same check in bf16 (printed);
   4. flash kernel phase: flash_fwd and the flash_bwd_dq / flash_bwd_dkv
      pair against their plain versions (o, lse, dq, dk, dv), fp32 and
      bf16, at (a) GPT-2 small training, b 8 h 12 l 1024 d 64 causal,
@@ -317,8 +321,11 @@ def int8_matmul_case(torch, kern, tq, m, k, n, group, dtype, rotations,
     item = x.element_size()
     n_bytes = k * n + 4 * (k // group) * n + (m * k + m * n) * item
     b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n, dtype_name)
+    splits = kern.k_splits(k, n, group)
     out = {"phase": "int8_matmul_kernel", "kernel": "int8_matmul_fwd",
            "dtype": dtype_name, "m": m, "k": k, "n": n, "group": group,
+           "n_splits": splits, "cluster": [splits, 1, 1],
+           "blocks": splits * -(-n // kern.BLOCK_N) * -(-m // 64),
            "max_rel_err": err, "max_abs_err": abs_err,
            "tol": TOL[dtype_name], "kernel_ms": ms, "plain_ms": plain_ms,
            "float_linear_ms": float_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -328,14 +335,16 @@ def int8_matmul_case(torch, kern, tq, m, k, n, group, dtype, rotations,
     return out
 
 
-def batch_invariance(torch, kern, tq, seed):
-    """fp32: row i of an m-row call must equal, bit for bit, the same row
+def batch_invariance(torch, kern, tq, seed, dtype_name="float32"):
+    """Row i of an m-row call must equal, bit for bit, the same row
     computed alone (m = 1), in a decode-sized batch (m = 4) and in a
     second run — the scheduler (m = slots or chunk) and generate() (m = 1
-    or prompt length) must see one arithmetic."""
+    or prompt length) must see one arithmetic.  A gate in fp32 (the
+    serving oracle); printed in bf16."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(64, 4096, generator=g, device=dev)
+    x = torch.randn(64, 4096, generator=g, device=dev).to(
+        getattr(torch, dtype_name))
     q, scale = tq.quantize(
         torch.randn(4096, 4096, generator=g, device=dev) * 0.02,
         group_size=64)
@@ -346,9 +355,9 @@ def batch_invariance(torch, kern, tq, seed):
         checks[f"rows {rows[0]}:{rows[1]}"] = torch.equal(
             part, full[rows[0]:rows[1]])
     torch.cuda.synchronize()
-    emit({"phase": "int8_matmul_batch_invariance", "dtype": "float32",
+    emit({"phase": "int8_matmul_batch_invariance", "dtype": dtype_name,
           "k": 4096, "n": 4096, "bitwise_equal": checks})
-    if not all(checks.values()):
+    if dtype_name == "float32" and not all(checks.values()):
         fail(f"int8_matmul is not batch invariant in fp32: {checks}")
 
 
@@ -389,12 +398,14 @@ def dense_case(torch, dec, name, b, h, kv_h, d, max_len, positions, dtype,
     n_bytes = 2 * b * max_len * kv_h * d * item + 2 * q.numel() * item + \
         bias.numel() * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * b * max_len * h * d, dtype_name)
+    split_keys = dec.dense_split_keys(max_len)
     out = {"phase": "kernel", "kernel": "decode_fwd", "case": name,
            "dtype": dtype_name, "batch": b, "heads": h, "kv_heads": kv_h,
            "head_dim": d, "max_len": max_len, "positions": list(positions),
+           "split_keys": split_keys, "n_splits": -(-max_len // split_keys),
            "max_abs_err": err, "tol": TOL[dtype_name], "kernel_ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": n_bytes}
+           "bound_by": b_by, "share_of_bound": b_ms / ms, "bytes": n_bytes}
     emit(out)
     return out
 
@@ -1229,9 +1240,26 @@ def main():
     ptxas = ptxas_usage(logs)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "ops": sorted(logs), "ptxas": ptxas})
+    # the decode kernel (paged and dense walk) and int8_matmul: no spill
+    decode_ptxas = {walk: [e for e in ptxas
+                           if "decode_kernel" in e["kernel"] and
+                           walk in e["kernel"]]
+                    for walk in ("PagedWalk", "DenseWalk")}
     emit({"phase": "ptxas_paged_decode",
-          "instantiations": [e for e in ptxas
-                             if "paged_decode_kernel" in e["kernel"]]})
+          "instantiations": decode_ptxas["PagedWalk"]})
+    emit({"phase": "ptxas_dense_decode",
+          "instantiations": decode_ptxas["DenseWalk"]})
+    int8_ptxas = [e for e in ptxas if "int8_matmul_kernel" in e["kernel"]]
+    emit({"phase": "ptxas_int8_matmul", "instantiations": int8_ptxas})
+    checked = decode_ptxas["PagedWalk"] + decode_ptxas["DenseWalk"] + \
+        int8_ptxas
+    spilled = [e["kernel"] for e in checked
+               if "0 bytes spill stores, 0 bytes spill loads" not in
+               e["spill"]]
+    if not all((decode_ptxas["PagedWalk"], decode_ptxas["DenseWalk"],
+                int8_ptxas)) or spilled:
+        fail(f"a decode or int8_matmul instantiation spills (or none was "
+             f"built): {spilled}")
     fwd_ptxas = [e for e in ptxas if "flash_fwd_wgmma_kernel" in e["kernel"]]
     emit({"phase": "ptxas_flash_fwd", "instantiations": fwd_ptxas})
     spilled = [e["kernel"] for e in fwd_ptxas
@@ -1274,9 +1302,12 @@ def main():
         results[("dense", dn)] = dense_case(
             torch, dec, "llama2-7b generate cache", 1, 32, 32, 128, 256,
             [215], dtype, rotations=8, seed=4)
-        dense_case(torch, dec, "llama2-7b batch 8 x 1024", 8, 32, 32, 128,
-                   1024, [1023 - 100 * i for i in range(8)], dtype,
-                   rotations=2, seed=5)
+        results[("dense_8x1024", dn)] = dense_case(
+            torch, dec, "llama2-7b batch 8 x 1024", 8, 32, 32, 128, 1024,
+            [1023 - 100 * i for i in range(8)], dtype, rotations=2, seed=5)
+        results[("dense_200", dn)] = dense_case(
+            torch, dec, "llama2-7b max_len 200", 4, 32, 32, 128, 200,
+            [0, 63, 150, 199], dtype, rotations=8, seed=7)
         results[("dense_mqa", dn)] = dense_case(
             torch, dec, "falcon-7b heads (MQA 71/1) generate cache", 1, 71,
             1, 64, 256, [215], dtype, rotations=8, seed=6)
@@ -1295,6 +1326,7 @@ def main():
 
     # ---- int8_matmul kernel phase: the Llama-2-7B projections
     batch_invariance(torch, qk, tq, seed=6)
+    batch_invariance(torch, qk, tq, seed=6, dtype_name="bfloat16")
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
         for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
@@ -1435,6 +1467,10 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kernels[0]["also_replaces"] = "deepspeed_tpu/ops/attention/decode.py:411"
     kernels[1]["mqa_71_1_ms"] = results[("dense_mqa", "bfloat16")]["kernel_ms"]
+    kernels[1]["batch_8x1024_ms"] = \
+        results[("dense_8x1024", "bfloat16")]["kernel_ms"]
+    kernels[1]["max_len_200_ms"] = \
+        results[("dense_200", "bfloat16")]["kernel_ms"]
     kernels[0]["launches_group_8_serve"] = grouped_float
     # the quantized paged kernel: group 1 over the 7B quantized serve
     # phases, group 8 over the grouped serve; int8 pools, bf16 compute

@@ -1,56 +1,66 @@
 // Decode attention for Hopper (sm_90a): one query token per sequence
-// against a KV cache, online softmax with fp32 statistics.
+// against a KV cache, online softmax with fp32 statistics.  One kernel
+// body (decode_kernel) under two walks of the cache.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/attention/decode.py:
 //   paged_decode_fwd  <- _paged_decode_kernel (:233) via _paged_decode_pallas
 //                        (pallas_call :471), and _paged_decode_kernel_gqa
 //                        (:293) via _paged_decode_pallas_gqa (pallas_call
-//                        :411): one kernel for every group = heads /
+//                        :411): the paged walk, every group = heads /
 //                        kv_heads (group 1 is MHA, kv_heads 1 is MQA);
 //   paged_decode_quant_fwd <- _paged_decode_kernel_quant (:171, pallas_call
 //                        :471) and the quantized=True branch of
 //                        _paged_decode_kernel_gqa (:310-338, pallas_call
-//                        :411): the same kernel over int8 or fp8-e4m3
+//                        :411): the paged walk over int8 or fp8-e4m3
 //                        payload pools with one fp32 scale per token row
 //                        per kv head ([pages, page_size, kv_heads, 1]),
 //                        the storage type being a template parameter;
 //   decode_fwd        <- _decode_kernel (:36) via _decode_pallas
-//                        (pallas_call :104), over a dense cache with an
-//                        additive bias.
+//                        (pallas_call :104): the dense walk, a
+//                        [b, max_len, kv_heads, d] cache with an additive
+//                        fp32 bias taken by strides.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): each K/V element
 // read feeds ~2 flops per query head of its group, far below the ~295
 // flop/byte ridge, so the floor is the K/V bytes the kernel must read
 // divided by 3.35 TB/s: the live prefix (keys <= position) of every slot
-// for the paged kernels, the whole [b, max_len] cache (plus the fp32
-// bias) for the dense one.  A quantized pool costs head_dim + 4 bytes
-// per row per kv head (payload and scale) where a bf16 pool costs
-// 2 * head_dim.  At serving batch sizes the bytes are few and the time
-// is latency, and one SM pulls only about 1/132 of the card's rate, so
-// what counts is how many SMs share a slot's bytes and how many
-// dependent steps each block takes.
+// for the paged walk, the whole [b, max_len] cache plus the fp32 bias for
+// the dense walk.  A quantized pool costs head_dim + 4 bytes per row per
+// kv head (payload and scale) where a bf16 pool costs 2 * head_dim.  At
+// decode sizes the bytes are few and the time is latency, and one SM
+// pulls only about 1/132 of the card's rate, so what counts is how many
+// SMs share a sequence's bytes and how many dependent steps each block
+// takes.
 //
-// The paged kernels (paged_decode_kernel) and what they do about it:
+// What the kernel does about it:
 //  * split keys (flash-decoding): the grid is (split, kv head x group
-//    tile, slot).  A split is a whole number of pages, at least 64 keys
-//    (the host picks it from the page size and the page table's width,
-//    never from the batch or the positions: at most 4 splits a slot).  A
-//    block whose split starts past its slot's position has nothing to
-//    do, so the host never reads the positions and the call is CUDA-graph
-//    safe.  A slot's splits are one thread block cluster: with one live
-//    split that block writes the output; with several, each live split
-//    pushes its fp32 partial (rows, m, l) into split 0's shared memory
-//    over the cluster (no workspace, no atomics) and split 0 merges them
-//    in split order.  The order is fixed, so the output is deterministic
-//    and does not depend on the batch.
-//  * a bulk-copy page pipeline: each K and V row of the block's kv head
+//    tile, sequence).  A split is a whole number of 64-key tiles, picked
+//    by the host from the cache's shape alone (paged: whole pages, at
+//    least 64 keys, from the page size and the table's width; dense: from
+//    max_len), never from the batch, the bias or the positions, and a
+//    sequence has at most 4 splits.  A paged block whose split starts
+//    past its slot's position has nothing to do, so the host never reads
+//    the positions and the call is CUDA-graph safe.  A sequence's splits
+//    are one thread block cluster: with one live split that block writes
+//    the output; with several, each live split pushes its fp32 partial
+//    (rows, m, l) into split 0's shared memory over the cluster (no
+//    workspace, no atomics) and split 0 merges them in split order.  The
+//    order is fixed, so the output is deterministic and does not depend
+//    on the batch.
+//  * the walk (a template parameter) gives a key's row and which keys are
+//    live.  Paged: the split's page ids are read once with the position;
+//    keys past the position are never read, so unallocated table entries
+//    (0) are never touched.  Dense: row (b, t) of the cache at the same
+//    per-row stride (kv_heads * head_dim), every key below max_len, and
+//    beside each K tile the tile's fp32 bias (one row when the bias does
+//    not vary over heads, else the block's head rows) staged by 4-byte
+//    cp.async through its strides; scores add it before the clamp.
+//  * a bulk-copy pipeline: each K and V row of the block's kv head
 //    (head_dim contiguous elements at stride kv_heads * head_dim) is one
 //    cp.async.bulk (TMA, no tensor map) into a two-stage shared-memory
 //    ring, completion counted in bytes on an mbarrier per stage; the next
-//    tile's copies are in flight during this tile's math.  The split's
-//    page ids are read once, together with the position and the query.
-//    Keys past the position are never read, so unallocated table entries
-//    (0) are never touched.
+//    tile's copies are in flight during this tile's math.  Keys past the
+//    last live key of a tile are scored NEG_INF and their V rows zeroed.
 //  * the group as one product: the block's query heads (a tile of up to
 //    16 of its kv head's group; larger groups take more tiles, MQA
 //    included) are the rows of S = Q K^T and acc += P V.  bf16 runs
@@ -66,14 +76,6 @@
 //    and the row scales (4-byte cp.async) through the same page index,
 //    then dequantize a tile to the compute type (float(payload) * scale,
 //    rounded) in shared memory before the same product.
-//
-// The dense kernel (decode_kernel, decode_fwd) keeps its PR 1 design:
-// grid (sequence, kv head, group tile), 128 threads walking the whole
-// cache in rounds of 64 keys, 16-byte loads, scores by warp reductions.
-// A block keeps one accumulator row per query head of its tile in
-// registers, so a group larger than kDenseGroupTile (16) is cut into
-// tiles of 16 heads over the grid's third dimension (MQA included);
-// groups of 16 or fewer are one tile, as before.
 //
 // Numerics follow the TPU kernels: fp32 scores = (q . k) * scale (+ bias),
 // clamped at NEG_INF = -1e30 (ops/attention/flash.py:42); a row whose
@@ -115,264 +117,14 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// ========================== decode_kernel: the paged and the dense walk
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// ================================================= dense decode (decode_fwd)
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;                    // keys per round (2 per lane)
-constexpr int kKeysPerWarp = kTile / kWarps;
-constexpr int kUnroll = 4;                   // rows in flight per warp
-constexpr int kDenseGroupTile = 16; // query heads of a block, at most
-
-// 16 bytes of a K/V row, kept packed while the load is in flight
-template <typename T>
-__device__ __forceinline__ uint4 load16(const T* src) {
-  return __ldg(reinterpret_cast<const uint4*>(src));
-}
-
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& raw, float* dst) {
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 16 / (int)sizeof(T); ++i) dst[i] = to_float(e[i]);
-}
-
-struct DenseParams {
-  const void* q;              // [n_seq, 1, kv_heads * group, head_dim]
-  const void* k;              // [n_seq, max_len, kv_heads, d]
-  const void* v;
-  void* out;                  // like q
-  const float* bias;          // element (b, h, 0, t) at
-  long long bias_sb, bias_sh, bias_sk;   // b*sb + h*sh + t*sk
-  int kv_heads, group, head_dim, max_len;
-  float scale;
-};
-
-__device__ __forceinline__ size_t dense_row_offset(const DenseParams& p,
-                                                   int b, int t, int kvh) {
-  return (((size_t)b * p.max_len + t) * p.kv_heads + kvh) * p.head_dim;
-}
-
-// T: the cache's, q's and the output's type
-template <typename T, int kMaxGroup>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
-    const DenseParams p) {
-  constexpr int N = 16 / (int)sizeof(T);     // elements in 16 bytes
-  constexpr int kChunksPerLane = (kMaxHeadDim / N + 31) / 32;
-  // the block's query heads: [g0, g0 + G) of its kv head's group
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int g0 = blockIdx.z * kDenseGroupTile;
-  const int G = min(kDenseGroupTile, p.group - g0), D = p.head_dim;
-  const int H = p.kv_heads * p.group, h0 = kvh * p.group + g0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_chunks = D / N;                // 16-byte chunks in a row
-  const int n_slices = kThreads / n_chunks;  // key slices of the PV phase
-  const int my_chunk = tid % n_chunks, my_slice = tid / n_chunks;
-  const bool pv_thread = my_slice < n_slices;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // [G][D] query rows
-  float* p_s = q_s + G * D;           // [G][kTile] scores -> probabilities
-  float* m_s = p_s + G * kTile;       // [G] running max
-  float* l_s = m_s + G;               // [G] running sum
-  float* a_s = l_s + G;               // [G] this round's rescale factor
-  float* red_s = a_s + G + 2 * kTile; // [n_slices][D] final reduction
-
-  const T* q = static_cast<const T*>(p.q) + ((size_t)b * H + h0) * D;
-  for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_float(q[i]);
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-  const int n_keys = p.max_len;
-  const T* kp = static_cast<const T*>(p.k);
-  const T* vp = static_cast<const T*>(p.v);
-
-  float acc[kMaxGroup][N];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g)
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc[g][i] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < n_keys; t0 += kTile) {
-    const int tn = min(kTile, n_keys - t0);
-
-    // (1) scores: warp w owns keys [w*16, w*16+16) of the round, four at
-    // a time; a lane holds 16-byte chunks of each key row
-    for (int u0 = 0; u0 < kKeysPerWarp; u0 += kUnroll) {
-      uint4 raw[kUnroll][kChunksPerLane];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int tt = warp * kKeysPerWarp + u0 + u;
-        if (tt < tn) {
-          const T* row = kp + dense_row_offset(p, b, t0 + tt, kvh);
-#pragma unroll
-          for (int j = 0; j < kChunksPerLane; ++j) {
-            const int c = lane + 32 * j;
-            if (c < n_chunks) raw[u][j] = load16(row + c * N);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int tt = warp * kKeysPerWarp + u0 + u;
-        float kv[kChunksPerLane][N];
-        if (tt < tn) {
-#pragma unroll
-          for (int j = 0; j < kChunksPerLane; ++j)
-            if (lane + 32 * j < n_chunks) unpack16<T>(raw[u][j], kv[j]);
-        }
-#pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
-          if (g < G) {
-            float s = kNegInf;
-            if (tt < tn) {
-              float dot = 0.f;
-#pragma unroll
-              for (int j = 0; j < kChunksPerLane; ++j) {
-                const int c = lane + 32 * j;
-                if (c < n_chunks) {
-                  const float* qq = q_s + g * D + c * N;
-#pragma unroll
-                  for (int i = 0; i < N; ++i) dot += kv[j][i] * qq[i];
-                }
-              }
-              s = warp_sum(dot) * p.scale;
-              s += p.bias[b * p.bias_sb + (long long)(h0 + g) *
-                          p.bias_sh + (long long)(t0 + tt) * p.bias_sk];
-              s = fmaxf(s, kNegInf);
-            }
-            if (lane == 0) p_s[g * kTile + tt] = s;
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // (2) online softmax, one warp per query row
-    for (int g = warp; g < G; g += kWarps) {
-      float* row = p_s + g * kTile;
-      const float s0 = row[lane], s1 = row[lane + 32];
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const bool live = m_new > 0.5f * kNegInf;
-      const float alpha = live ? expf(m_prev - m_new) : 0.f;
-      const float e0 = live ? expf(s0 - m_new) : 0.f;
-      const float e1 = live ? expf(s1 - m_new) : 0.f;
-      const float sum = warp_sum(e0 + e1);
-      row[lane] = to_float(from_float<T>(e0));   // p in the value dtype
-      row[lane + 32] = to_float(from_float<T>(e1));
-      if (lane == 0) {
-        m_s[g] = m_new;
-        l_s[g] = alpha * l_s[g] + sum;
-        a_s[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // (3) acc = alpha * acc + p @ V: thread (slice, chunk) owns 16 bytes
-    // of the head dim for every key of its slice
-    if (pv_thread) {
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < G) {
-          const float a = a_s[g];
-#pragma unroll
-          for (int i = 0; i < N; ++i) acc[g][i] *= a;
-        }
-      }
-      for (int tt0 = my_slice; tt0 < tn; tt0 += n_slices * kUnroll) {
-        uint4 raw[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int tt = tt0 + u * n_slices;
-          if (tt < tn)
-            raw[u] = load16(vp + dense_row_offset(p, b, t0 + tt, kvh) +
-                            my_chunk * N);
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int tt = tt0 + u * n_slices;
-          if (tt < tn) {
-            float vv[N];
-            unpack16<T>(raw[u], vv);
-#pragma unroll
-            for (int g = 0; g < kMaxGroup; ++g) {
-              if (g < G) {
-                const float pg = p_s[g * kTile + tt];
-#pragma unroll
-                for (int i = 0; i < N; ++i) acc[g][i] += pg * vv[i];
-              }
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // reduce the key slices, one query row at a time; out = acc / l
-  T* out = static_cast<T*>(p.out) + ((size_t)b * H + h0) * D;
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g < G) {
-      if (pv_thread) {
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-          red_s[my_slice * D + my_chunk * N + i] = acc[g][i];
-      }
-      __syncthreads();
-      const float l = l_s[g] == 0.f ? 1.f : l_s[g];
-      for (int e = tid; e < D; e += kThreads) {
-        float sum = 0.f;
-        for (int s = 0; s < n_slices; ++s) sum += red_s[s * D + e];
-        out[g * D + e] = from_float<T>(sum / l);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_dense(const DenseParams& p, int n_seq,
-                         cudaStream_t stream) {
-  constexpr int N = 16 / (int)sizeof(T);
-  if (p.head_dim % N != 0) return cudaErrorInvalidValue;
-  const int n_slices = kThreads / (p.head_dim / N);
-  const int tile = min(p.group, kDenseGroupTile);   // heads of a block
-  const size_t smem = sizeof(float) *
-      ((size_t)tile * (p.head_dim + kTile + 3) + 2 * kTile +
-       (size_t)n_slices * p.head_dim);
-  const dim3 grid(n_seq, p.kv_heads,
-                  (p.group + kDenseGroupTile - 1) / kDenseGroupTile);
-  if (p.group == 1)
-    decode_kernel<T, 1><<<grid, kThreads, smem, stream>>>(p);
-  else if (p.group == 2)
-    decode_kernel<T, 2><<<grid, kThreads, smem, stream>>>(p);
-  else if (p.group <= 4)
-    decode_kernel<T, 4><<<grid, kThreads, smem, stream>>>(p);
-  else if (p.group <= 8)
-    decode_kernel<T, 8><<<grid, kThreads, smem, stream>>>(p);
-  else
-    decode_kernel<T, kDenseGroupTile><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// ====================================== paged decode (paged_decode[_quant]_fwd)
+// The walks of the cache (decode_kernel's Walk parameter): the paged pools
+// through a page table up to each slot's position (paged_decode_fwd,
+// paged_decode_quant_fwd), or a dense cache with an additive bias
+// (decode_fwd)
+struct PagedWalk {};
+struct DenseWalk {};
 
 constexpr int kPThreads = 128;
 constexpr int kPWarps = kPThreads / 32;
@@ -383,24 +135,28 @@ static_assert(kRows * 8 == kPThreads, "8 threads a query row");
 static_assert(kRows <= 2 * kMaxFmaRows, "fp32 PV: head_dim <= 256 leaves two "
               "row groups, so a thread owns at most kMaxFmaRows rows");
 
-struct PagedParams {
-  const void* q;              // [slots, 1, kv_heads * group, head_dim]
-  const void* k;              // [pages, page_size, kv_heads, head_dim]
-  const void* v;
+struct DecodeParams {
+  const void* q;              // [seqs, 1, kv_heads * group, head_dim]
+  const void* k;              // paged: [pages, page_size, kv_heads,
+  const void* v;              //   head_dim]; dense: [seqs, max_len, ...]
   void* out;                  // like q
-  const int* page_table;      // [slots, max_pages]
-  const int* positions;       // [slots]
+  const int* page_table;      // paged: [slots, max_pages]
+  const int* positions;       // paged: [slots]
   const float* k_scale;       // quantized pools: [pages, page_size,
   const float* v_scale;       //   kv_heads, 1]
+  const float* bias;          // dense: element (b, h, 0, t) at
+  long long bias_sb, bias_sh, bias_sk;   // b*sb + h*sh + t*sk
+  // dense: page_size is max_len and max_pages 1 (one page a sequence)
   int kv_heads, group, head_dim, page_size, max_pages;
-  int pages_per_split, n_splits, n_gtiles;
+  int pages_per_split;        // paged: page ids a block reads
+  int split_keys, n_splits, n_gtiles;
   float scale;
 };
 
 // Tile sizes and the shared-memory carve-up of one instantiation, the same
 // on the host (size) and the card.
 template <typename T, typename S>
-struct PagedLayout {
+struct DecodeLayout {
   static constexpr bool kQuant = !std::is_same<T, S>::value;
   static constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   // bf16: 64 keys a stage; fp32 (FMA, 4 threads a key): 32; two stages
@@ -410,11 +166,12 @@ struct PagedLayout {
   int dk;          // head_dim padded to the mma depth (16) for bf16
   int ring_stride; // bytes per staged K/V row
   int t_stride;    // bytes per row of a compute-type tile (Q, dequantized)
-  size_t ring, scales, deq, q, s, stats, bars, pages, recv, total;
+  size_t ring, scales, deq, bias, q, s, stats, bars, pages, recv, total;
   int recv_stride;  // floats a split's pushed rows and (m, l) take
 
-  // d: head_dim; pps: pages per split
-  __host__ __device__ PagedLayout(int d, int pps) {
+  // d: head_dim; pps: pages per split (paged walk); dense: the walk
+  // stages a bias tile a stage
+  __host__ __device__ DecodeLayout(int d, int pps, bool dense) {
     dk = kMma ? (d + 15) / 16 * 16 : d;
     // 16 bytes of padding per row: ldmatrix's eight rows then fall on
     // distinct banks
@@ -424,6 +181,7 @@ struct PagedLayout {
     ring = o;   o += (size_t)kStages * 2 * kKeys * ring_stride;
     scales = o; o += kQuant ? (size_t)kStages * 2 * kKeys * 4 : 0;
     deq = o;    o += kQuant ? (size_t)2 * kKeys * t_stride : 0;
+    bias = o;   o += dense ? (size_t)kStages * kRows * kKeys * 4 : 0;
     // after the loop the space from 0 holds the output rows (fp32
     // [kRows][d]) and, for bf16, the four warps' rows ([4][kRows][dk + 8])
     const size_t out_rows =
@@ -576,12 +334,16 @@ __device__ __forceinline__ void dequant16(const uint4& raw, float scale,
 // T: the compute type (q's and the output's); S: the pools' storage type,
 // T itself for a float cache, int8_t or __nv_fp8_e4m3 for a quantized one;
 // kMaxD: the largest head_dim the instantiation takes (registers scale
-// with it)
-template <typename T, typename S, int kMaxD>
-__global__ void __launch_bounds__(kPThreads) paged_decode_kernel(
-    const PagedParams p) {
-  using Layout = PagedLayout<T, S>;
+// with it); Walk: PagedWalk or DenseWalk (float caches only)
+// (one block an SM at least: ptxas then keeps every instantiation's
+// registers, up to 214, without spilling)
+template <typename T, typename S, int kMaxD, typename Walk>
+__global__ void __launch_bounds__(kPThreads, 1) decode_kernel(
+    const DecodeParams p) {
+  using Layout = DecodeLayout<T, S>;
+  constexpr bool kDense = std::is_same<Walk, DenseWalk>::value;
   constexpr bool kQuant = Layout::kQuant;
+  static_assert(!(kDense && kQuant), "the dense walk reads a float cache");
   constexpr bool kMma = Layout::kMma;
   constexpr int kKeys = Layout::kKeys, kStages = Layout::kStages;
   constexpr int kSStride = Layout::kSStride;
@@ -595,14 +357,14 @@ __global__ void __launch_bounds__(kPThreads) paged_decode_kernel(
   const int slot = blockIdx.z;
   const int D = p.head_dim, G = p.group, H = p.kv_heads * G;
   const int ps = p.page_size;
-  const int split_keys = p.pages_per_split * ps;
+  const int split_keys = p.split_keys;
   const int k0 = split * split_keys;
   const int rows = min(kRows, G - gt * kRows);   // real query heads
   const int head0 = kvh * G + gt * kRows;
   // thread (row, column): 8 threads a query row
   const int my_row = tid >> 3, col0 = tid & 7;
 
-  const Layout L(D, p.pages_per_split);
+  const Layout L(D, p.pages_per_split, kDense);
   extern __shared__ __align__(16) unsigned char psmem[];
   unsigned char* ring = psmem + L.ring;
   float* scales_s = reinterpret_cast<float*>(psmem + L.scales);
@@ -613,13 +375,14 @@ __global__ void __launch_bounds__(kPThreads) paged_decode_kernel(
   float* a_s = l_s + kRows;
   uint64_t* bars = reinterpret_cast<uint64_t*>(psmem + L.bars);
   int* pages_s = reinterpret_cast<int*>(psmem + L.pages);
+  float* bias_s = reinterpret_cast<float*>(psmem + L.bias);
   const int qst = L.t_stride / (int)sizeof(T);  // elements per tile row
 
-  // three loads in flight together: the query rows (16 bytes a load;
-  // rows past the group and columns past head_dim are zero), the slot's
-  // position and the split's page ids (read before the position is known:
-  // a table entry is a valid int even where unallocated, and its page is
-  // only touched below the position)
+  // paged: three loads in flight together: the query rows (16 bytes a
+  // load; rows past the group and columns past head_dim are zero), the
+  // slot's position and the split's page ids (read before the position is
+  // known: a table entry is a valid int even where unallocated, and its
+  // page is only touched below the position)
   constexpr int kQLoads = kMaxHeadDim / kVec / 8;
   const T* q = static_cast<const T*>(p.q) + ((size_t)slot * H + head0) * D;
   uint4 qv[kQLoads];
@@ -631,16 +394,21 @@ __global__ void __launch_bounds__(kPThreads) paged_decode_kernel(
       qv[j] = *reinterpret_cast<const uint4*>(q + (size_t)my_row * D +
                                               c * kVec);
   }
-  const int position = p.positions[slot];
-  const int first_page = k0 / ps;
-  const int n_pages = max(0, min(p.pages_per_split,
-                                 p.max_pages - first_page));
-  for (int i = tid; i < n_pages; i += kPThreads)
-    pages_s[i] = p.page_table[(size_t)slot * p.max_pages + first_page + i];
-
-  // keys [0, n_keys) are live (clamped to the table's reach); this
-  // block walks [k0, k1) of them
-  const int n_keys = max(0, min(position + 1, ps * p.max_pages));
+  // keys [0, n_keys) are live: paged, up to the position (clamped to the
+  // table's reach); dense, every key below max_len (the bias masks).
+  // This block walks [k0, k1) of them
+  int n_keys;
+  if constexpr (kDense) {
+    n_keys = ps;
+  } else {
+    const int position = p.positions[slot];
+    const int first_page = k0 / ps;
+    const int n_pages = max(0, min(p.pages_per_split,
+                                   p.max_pages - first_page));
+    for (int i = tid; i < n_pages; i += kPThreads)
+      pages_s[i] = p.page_table[(size_t)slot * p.max_pages + first_page + i];
+    n_keys = max(0, min(position + 1, ps * p.max_pages));
+  }
   const int n_live = max(1, (n_keys + split_keys - 1) / split_keys);
   // The splits of a (slot, head tile) are one thread block cluster.  One
   // live split: it writes the output and the others leave.  Several:
@@ -691,18 +459,36 @@ __global__ void __launch_bounds__(kPThreads) paged_decode_kernel(
   // thread (K or V, row) of a stage: one bulk copy of its row, and for a
   // quantized pool a 4-byte copy of the row's scale
   const int my_kv = tid / kKeys, my_r = tid % kKeys;
+  // dense: the bias rows a stage holds (one when it is the same for every
+  // head) and the row query head r reads
+  const int bias_rows = kDense && p.bias_sh != 0 ? rows : 1;
+  auto bias_row = [&](int r) { return bias_rows == 1 ? 0 : min(r, rows - 1); };
   auto issue = [&](int it) {
     const int st = it % kStages;
     const int t = it * kKeys + my_r;          // key offset in the split
     const int valid = min(kKeys, k1 - k0 - it * kKeys);
     if (my_kv < 2 && my_r < valid) {
-      const size_t row = ((size_t)pages_s[t / ps] * ps + t % ps) *
-                         p.kv_heads + kvh;
+      size_t row;
+      if constexpr (kDense)
+        row = ((size_t)slot * ps + k0 + t) * p.kv_heads + kvh;
+      else
+        row = ((size_t)pages_s[t / ps] * ps + t % ps) * p.kv_heads + kvh;
       bulk_copy(ring + ((size_t)st * 2 * kKeys + tid) * L.ring_stride,
                 (my_kv ? v_pool : k_pool) + row * D, row_bytes, &bars[st]);
       if constexpr (kQuant)
         cp_async4(scales_s + st * 2 * kKeys + tid,
                   (my_kv ? p.v_scale : p.k_scale) + row);
+    }
+    if constexpr (kDense) {
+      const float* src = p.bias + slot * p.bias_sb +
+                         (long long)head0 * p.bias_sh +
+                         (long long)(k0 + it * kKeys) * p.bias_sk;
+      for (int i = tid; i < bias_rows * kKeys; i += kPThreads) {
+        const int r = i / kKeys, c = i - r * kKeys;
+        if (c < valid)
+          cp_async4(bias_s + (st * kRows + r) * kKeys + c,
+                    src + r * p.bias_sh + c * p.bias_sk);
+      }
     }
     if (tid == 0) mbar_arrive_expect(&bars[st], 2 * valid * row_bytes);
   };
@@ -736,13 +522,16 @@ __global__ void __launch_bounds__(kPThreads) paged_decode_kernel(
                         reinterpret_cast<T*>(deq + (size_t)r * L.t_stride) +
                             c * kChunk);
       }
-    } else if (valid < kKeys) {
-      T* vt = const_cast<T*>(v_tile(it));
-      const int cpr = D / kVec;
-      for (int i = tid; i < (kKeys - valid) * cpr; i += kPThreads) {
-        const int r = valid + i / cpr, c = i % cpr;
-        *reinterpret_cast<uint4*>(vt + r * qst + c * kVec) =
-            make_uint4(0, 0, 0, 0);
+    } else {
+      if constexpr (kDense) cp_async_wait<kStages - 1>();   // the bias
+      if (valid < kKeys) {
+        T* vt = const_cast<T*>(v_tile(it));
+        const int cpr = D / kVec;
+        for (int i = tid; i < (kKeys - valid) * cpr; i += kPThreads) {
+          const int r = valid + i / cpr, c = i % cpr;
+          *reinterpret_cast<uint4*>(vt + r * qst + c * kVec) =
+              make_uint4(0, 0, 0, 0);
+        }
       }
     }
     __syncthreads();
@@ -814,15 +603,20 @@ __global__ void __launch_bounds__(kPThreads) paged_decode_kernel(
       for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
         for (int i = 0; i < 4; ++i) c[nb][i] += c2[nb][i];
-      // scale, mask, clamp; the tile's row max over the quad's lanes
+      // scale (dense: add the bias), mask, clamp; the tile's row max over
+      // the quad's lanes
       float mx[2] = {kNegInf, kNegInf};
+      const float* bt = bias_s + (it % kStages) * kRows * kKeys;
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int key = kw + nb * 8 + tig * 2 + (i & 1);
-          c[nb][i] = key < valid ? fmaxf(c[nb][i] * p.scale, kNegInf)
-                                 : kNegInf;
+          float sv = c[nb][i] * p.scale;
+          if constexpr (kDense)
+            sv = __fadd_rn(__fmul_rn(c[nb][i], p.scale),
+                           bt[bias_row(g_row + 8 * (i >> 1)) * kKeys + key]);
+          c[nb][i] = key < valid ? fmaxf(sv, kNegInf) : kNegInf;
           mx[i >> 1] = fmaxf(mx[i >> 1], c[nb][i]);
         }
       float alpha[2];
@@ -986,9 +780,14 @@ __global__ void __launch_bounds__(kPThreads) paged_decode_kernel(
             float v = dot[r];
             v += __shfl_xor_sync(0xffffffffu, v, 1);
             v += __shfl_xor_sync(0xffffffffu, v, 2);
+            float sv = v * p.scale;
+            if constexpr (kDense)
+              sv = __fadd_rn(__fmul_rn(v, p.scale),
+                             bias_s[((it % kStages) * kRows + bias_row(r)) *
+                                    kKeys + key]);
             if (qtr == 0)
               s_s[r * kSStride + key] =
-                  key < valid ? fmaxf(v * p.scale, kNegInf) : kNegInf;
+                  key < valid ? fmaxf(sv, kNegInf) : kNegInf;
           }
         }
       }
@@ -1129,11 +928,11 @@ __global__ void __launch_bounds__(kPThreads) paged_decode_kernel(
   }
 }
 
-template <typename T, typename S, int kMaxD>
-cudaError_t launch_paged_d(const PagedParams& p, int slots,
-                           cudaStream_t stream) {
-  const PagedLayout<T, S> layout(p.head_dim, p.pages_per_split);
-  auto kernel = paged_decode_kernel<T, S, kMaxD>;
+template <typename T, typename S, typename Walk, int kMaxD>
+cudaError_t launch_d(const DecodeParams& p, int n_seq, cudaStream_t stream) {
+  const DecodeLayout<T, S> layout(p.head_dim, p.pages_per_split,
+                                  std::is_same<Walk, DenseWalk>::value);
+  auto kernel = decode_kernel<T, S, kMaxD, Walk>;
   if (layout.total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1141,13 +940,13 @@ cudaError_t launch_paged_d(const PagedParams& p, int slots,
     if (e != cudaSuccess) return e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.n_splits, p.kv_heads * p.n_gtiles, slots);
+  cfg.gridDim = dim3(p.n_splits, p.kv_heads * p.n_gtiles, n_seq);
   cfg.blockDim = dim3(kPThreads);
   cfg.dynamicSmemBytes = layout.total;
   cfg.stream = stream;
   cudaLaunchAttribute cluster = {};
   cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = p.n_splits;       // a slot's splits
+  cluster.val.clusterDim.x = p.n_splits;       // a sequence's splits
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
@@ -1158,64 +957,76 @@ cudaError_t launch_paged_d(const PagedParams& p, int slots,
 
 // bf16 keeps a head_dim's accumulators in registers: head_dim <= 128
 // takes the instantiation with half the registers of the 256 one
-template <typename T, typename S>
-cudaError_t launch_paged(const PagedParams& p, int slots,
-                         cudaStream_t stream) {
+template <typename T, typename S, typename Walk>
+cudaError_t launch(const DecodeParams& p, int n_seq, cudaStream_t stream) {
   constexpr int kChunk = 16 / (int)sizeof(S);
   if (p.head_dim % kChunk != 0 || p.head_dim % 8 != 0)
     return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    if (p.head_dim <= 128) return launch_paged_d<T, S, 128>(p, slots, stream);
-  return launch_paged_d<T, S, kMaxHeadDim>(p, slots, stream);
+    if (p.head_dim <= 128) return launch_d<T, S, Walk, 128>(p, n_seq, stream);
+  return launch_d<T, S, Walk, kMaxHeadDim>(p, n_seq, stream);
 }
 
-bool shapes_ok(int n_seq, int kv_heads, int group, int head_dim, int dtype) {
-  return n_seq > 0 && kv_heads > 0 && group >= 1 && head_dim > 0 &&
-         head_dim <= kMaxHeadDim && (dtype == 0 || dtype == 1);
-}
-
-// the grid of the paged kernels: (split, kv head x group tile, slot)
-bool fill_paged(PagedParams& p, int slots, int kv_heads, int group,
-                int head_dim, int page_size, int max_pages,
-                int pages_per_split, float scale) {
-  if (!shapes_ok(slots, kv_heads, group, head_dim, 0) || page_size <= 0 ||
-      max_pages <= 0 || pages_per_split <= 0 || slots > 65535)
+// the grid: (split, kv head x group tile, sequence); a sequence's splits
+// are one cluster (at most kMaxSplits blocks)
+bool fill_grid(DecodeParams& p, int n_seq, int kv_heads, int group,
+               int head_dim, int dtype, int n_keys, int split_keys,
+               float scale) {
+  if (n_seq <= 0 || n_seq > 65535 || kv_heads <= 0 || group < 1 ||
+      head_dim <= 0 || head_dim > kMaxHeadDim ||
+      (dtype != 0 && dtype != 1) || n_keys <= 0 || split_keys <= 0)
     return false;
   p.kv_heads = kv_heads;
   p.group = group;
   p.head_dim = head_dim;
-  p.page_size = page_size;
-  p.max_pages = max_pages;
-  p.pages_per_split = pages_per_split;
-  p.n_splits = (max_pages + pages_per_split - 1) / pages_per_split;
+  p.split_keys = split_keys;
+  p.n_splits = (n_keys + split_keys - 1) / split_keys;
   p.n_gtiles = (group + kRows - 1) / kRows;
   p.scale = scale;
-  // a slot's splits are one cluster (at most kMaxSplits blocks)
   return (long long)kv_heads * p.n_gtiles <= 65535 &&
          p.n_splits <= kMaxSplits;
 }
 
+// the paged walk: a split is pages_per_split pages
+bool fill_paged(DecodeParams& p, int slots, int kv_heads, int group,
+                int head_dim, int page_size, int max_pages,
+                int pages_per_split, float scale, int dtype) {
+  if (page_size <= 0 || max_pages <= 0 || pages_per_split <= 0 ||
+      (long long)pages_per_split * page_size > (1 << 30))
+    return false;
+  p.page_size = page_size;
+  p.max_pages = max_pages;
+  p.pages_per_split = pages_per_split;
+  return fill_grid(p, slots, kv_heads, group, head_dim, dtype,
+                   page_size * max_pages, pages_per_split * page_size,
+                   scale);
+}
+
 // float pools: the storage type is the compute type
-int dispatch_float(const PagedParams& p, int slots, int dtype, void* stream) {
+template <typename Walk>
+int dispatch_float(const DecodeParams& p, int n_seq, int dtype,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      dtype == 0 ? launch_paged<float, float>(p, slots, s)
-                 : launch_paged<__nv_bfloat16, __nv_bfloat16>(p, slots, s));
+      dtype == 0
+          ? launch<float, float, Walk>(p, n_seq, s)
+          : launch<__nv_bfloat16, __nv_bfloat16, Walk>(p, n_seq, s));
 }
 
 // quantized pools: S = int8_t or __nv_fp8_e4m3
 template <typename S>
-int dispatch_quant(const PagedParams& p, int slots, int dtype, void* stream) {
+int dispatch_quant(const DecodeParams& p, int slots, int dtype,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      dtype == 0 ? launch_paged<float, S>(p, slots, s)
-                 : launch_paged<__nv_bfloat16, S>(p, slots, s));
+      dtype == 0 ? launch<float, S, PagedWalk>(p, slots, s)
+                 : launch<__nv_bfloat16, S, PagedWalk>(p, slots, s));
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. A split is pages_per_split pages;
-// ceil(max_pages / pages_per_split) must be at most 8 (one cluster).
+// ceil(max_pages / pages_per_split) must be at most 4 (one cluster).
 // Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_fwd(const void* q, const void* k_pages,
                                 const void* v_pages, void* out,
@@ -1225,7 +1036,7 @@ extern "C" int paged_decode_fwd(const void* q, const void* k_pages,
                                 int page_size, int max_pages,
                                 int pages_per_split, float scale, int dtype,
                                 void* stream) {
-  PagedParams p = {};
+  DecodeParams p = {};
   p.q = q;
   p.k = k_pages;
   p.v = v_pages;
@@ -1233,9 +1044,9 @@ extern "C" int paged_decode_fwd(const void* q, const void* k_pages,
   p.page_table = static_cast<const int*>(page_table);
   p.positions = static_cast<const int*>(positions);
   if (!fill_paged(p, slots, kv_heads, group, head_dim, page_size, max_pages,
-                  pages_per_split, scale) || (dtype != 0 && dtype != 1))
+                  pages_per_split, scale, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_float(p, slots, dtype, stream);
+  return dispatch_float<PagedWalk>(p, slots, dtype, stream);
 }
 
 // The same over quantized pools: k_pages / v_pages hold int8 (storage 1) or
@@ -1248,7 +1059,7 @@ extern "C" int paged_decode_quant_fwd(
     int group, int head_dim, int page_size, int max_pages,
     int pages_per_split, float scale, int dtype, int storage,
     void* stream) {
-  PagedParams p = {};
+  DecodeParams p = {};
   p.q = q;
   p.k = k_pages;
   p.v = v_pages;
@@ -1258,24 +1069,25 @@ extern "C" int paged_decode_quant_fwd(
   p.page_table = static_cast<const int*>(page_table);
   p.positions = static_cast<const int*>(positions);
   if (!fill_paged(p, slots, kv_heads, group, head_dim, page_size, max_pages,
-                  pages_per_split, scale) || (dtype != 0 && dtype != 1) ||
+                  pages_per_split, scale, dtype) ||
       (storage != 1 && storage != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   return storage == 1 ? dispatch_quant<int8_t>(p, slots, dtype, stream)
                       : dispatch_quant<__nv_fp8_e4m3>(p, slots, dtype, stream);
 }
 
+// The dense walk: k_cache / v_cache [batch, max_len, kv_heads, head_dim]
+// of q's dtype, every key below max_len read, the fp32 bias element
+// (b, h, 0, t) at bias + b*sb + h*sh + t*sk.  A split is split_keys keys
+// (a multiple of 64); ceil(max_len / split_keys) must be at most 4.
 extern "C" int decode_fwd(const void* q, const void* k_cache,
                           const void* v_cache, void* out, const void* bias,
                           long long bias_sb, long long bias_sh,
                           long long bias_sk, int batch, int max_len,
-                          int kv_heads, int group, int head_dim, float scale,
-                          int dtype, void* stream) {
-  if (!shapes_ok(batch, kv_heads, group, head_dim, dtype) || max_len <= 0 ||
-      kv_heads > 65535 || (group + kDenseGroupTile - 1) / kDenseGroupTile >
-      65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  DenseParams p = {};
+                          int kv_heads, int group, int head_dim,
+                          int split_keys, float scale, int dtype,
+                          void* stream) {
+  DecodeParams p = {};
   p.q = q;
   p.k = k_cache;
   p.v = v_cache;
@@ -1284,13 +1096,11 @@ extern "C" int decode_fwd(const void* q, const void* k_cache,
   p.bias_sb = bias_sb;
   p.bias_sh = bias_sh;
   p.bias_sk = bias_sk;
-  p.kv_heads = kv_heads;
-  p.group = group;
-  p.head_dim = head_dim;
-  p.max_len = max_len;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      dtype == 0 ? launch_dense<float>(p, batch, s)
-                 : launch_dense<__nv_bfloat16>(p, batch, s));
+  p.page_size = max_len;
+  p.max_pages = 1;
+  if (split_keys % 64 != 0 ||
+      !fill_grid(p, batch, kv_heads, group, head_dim, dtype, max_len,
+                 split_keys, scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_float<DenseWalk>(p, batch, dtype, stream);
 }

@@ -1,15 +1,16 @@
 """Single-token decode attention over dense and paged KV caches
 (counterpart of ``deepspeed_tpu/ops/attention/decode.py``).
 
-Three hand-written CUDA kernels for Hopper live in
-``csrc/decode_attention.cu`` (its header note names the TPU kernels they
-replace, their bound and the design): ``paged_decode_fwd`` (paged MHA,
-GQA and MQA in one kernel, any group), ``paged_decode_quant_fwd`` (the
-same over int8 / fp8 pools with per-row scale pools, dequantized in
-shared memory) and ``decode_fwd`` (dense cache + additive bias).  The
-paged kernels split each slot's keys into splits of whole pages
-(:func:`pages_per_split`) walked by blocks of their own and merged in
-split order inside the same launch (the splits of a slot are one thread
+Three entry points of one hand-written CUDA kernel body for Hopper live
+in ``csrc/decode_attention.cu`` (its header note names the TPU kernels
+they replace, their bound and the design): ``paged_decode_fwd`` (paged
+MHA, GQA and MQA, any group), ``paged_decode_quant_fwd`` (the same over
+int8 / fp8 pools with per-row scale pools, dequantized in shared memory)
+and ``decode_fwd`` (a dense cache + an additive bias: the kernel's dense
+walk).  Each sequence's keys are cut into splits of whole 64-key tiles
+(:func:`pages_per_split` for the paged pools, :func:`dense_split_keys`
+for a dense cache) walked by blocks of their own and merged in split
+order inside the same launch (the splits of a sequence are one thread
 block cluster).  Each public function here has a plain PyTorch version
 beside it.
 
@@ -34,8 +35,8 @@ _QUANT_STORAGE = {torch.int8: 1}          # + float8_e4m3fn: 2, where built
 if hasattr(torch, "float8_e4m3fn"):
     _QUANT_STORAGE[torch.float8_e4m3fn] = 2
 MAX_HEAD_DIM = 256
-SPLIT_KEYS = 64        # keys per split of the paged kernels, at least
-MAX_SPLITS = 4         # splits of a slot: one thread block cluster
+SPLIT_KEYS = 64        # keys per split, at least: one tile of the kernel
+MAX_SPLITS = 4         # splits of a sequence: one thread block cluster
 
 
 def launch_counts():
@@ -56,6 +57,17 @@ def pages_per_split(page_size, max_pages):
     on the page size and the table's width, never on the batch or the
     positions, so a slot's output bits do not depend on the batch."""
     return max(-(-SPLIT_KEYS // page_size), -(-max_pages // MAX_SPLITS))
+
+
+def dense_split_keys(max_len):
+    """Keys per split of the dense walk (``decode_fwd``): whole
+    :data:`SPLIT_KEYS`-key tiles, the fewest that give at most
+    :data:`MAX_SPLITS` splits of ``max_len`` keys.  It depends on the
+    cache's length alone — never on the batch, the bias or a position —
+    so a sequence's output bits do not depend on the batch and the call
+    is CUDA-graph safe."""
+    tiles = -(-max(1, max_len) // SPLIT_KEYS)
+    return -(-tiles // MAX_SPLITS) * SPLIT_KEYS
 
 
 def _lib():
@@ -274,8 +286,9 @@ def decode_attention(q, k_cache, v_cache, *, bias, scale=None):
     [b, heads, l, max_len] carrying the validity mask.
 
     One query token (``l == 1``) on a CUDA tensor launches ``decode_fwd``,
-    which reads a grouped cache natively (any group, MQA included: a
-    block takes up to 16 query heads of a kv head) and takes the bias
+    the decode kernel's dense walk: it reads a grouped cache natively
+    (any group, MQA included: a block takes up to 16 query heads of a kv
+    head), splits the keys by :func:`dense_split_keys` and takes the bias
     through its strides (a broadcast bias is never materialised).
     Several query tokens (prefill into a cache) run the plain attention
     on any device, as in the JAX package, where no TPU kernel serves
@@ -307,7 +320,7 @@ def decode_attention(q, k_cache, v_cache, *, bias, scale=None):
     err = _lib().decode_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         bias.data_ptr(), sb, sh, sk, b, max_len, kv_h, h // kv_h, d,
-        scale, _KERNEL_DTYPES[q.dtype],
+        dense_split_keys(max_len), scale, _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed("decode_fwd", err)
     _LAUNCHES["decode_fwd"] += 1

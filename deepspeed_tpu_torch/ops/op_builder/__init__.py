@@ -151,7 +151,8 @@ class DecodeAttentionBuilder(CUDAOpBuilder):
             _p, _p, _p, _p, _p,                 # q k v out bias
             _ll, _ll, _ll,                      # bias strides b, h, key
             _i, _i, _i, _i, _i,                 # b max_len kv_h group d
-            _f, _i, _p]                         # scale dtype stream
+            _i, _f, _i, _p]                     # split_keys scale dtype
+                                                # stream
         lib.decode_fwd.restype = _i
 
 
@@ -192,7 +193,8 @@ class Int8MatmulBuilder(CUDAOpBuilder):
     def _annotate(self, lib):
         lib.int8_matmul_fwd.argtypes = [
             _p, _p, _p, _p,                     # x q scale out
-            _i, _i, _i, _i, _i, _p]             # m k n group dtype stream
+            _i, _i, _i, _i, _i, _i, _p]         # m k n group splits dtype
+                                                # stream
         lib.int8_matmul_fwd.restype = _i
 
 

@@ -10,8 +10,11 @@ the weights — that is the function's arithmetic, and
 :func:`int8_matmul_plain` repeats it step by step.
 
 The hand-written CUDA kernel for Hopper is ``csrc/int8_matmul.cu`` (its
-header note names the TPU kernel it replaces, its bound and the design).
-The weight stays int8 in device memory and is never materialised
+header note names the TPU kernel it replaces, its bound and the design):
+a producer warp keeps int8 weight tiles in flight by TMA, bf16 runs on
+the tensor cores, and k is split by whole groups over the blocks of a
+thread block cluster (:func:`k_splits`), merged in split order.  The
+weight stays int8 in device memory and is never materialised
 dequantized.  The dispatch rule is the tensor's device: a CPU tensor
 runs the plain version, a CUDA tensor launches the kernel or raises.
 The wrapper counts its launches (:func:`launch_counts`).
@@ -21,6 +24,10 @@ import torch
 
 _LAUNCHES = {"int8_matmul_fwd": 0}
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK_N = 128          # output columns of a block of the kernel
+MAX_K_SPLITS = 8       # blocks of a thread block cluster
+NUM_SMS = 132          # the H100 SXM's streaming multiprocessors
+TARGET_BLOCKS = 256    # about two blocks for each of them
 
 
 def launch_counts():
@@ -31,6 +38,24 @@ def launch_counts():
 def reset_launch_counts():
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def k_splits(k, n, group):
+    """Blocks that share a column tile's k in the kernel: none where the
+    column tiles alone give each SM one (:data:`NUM_SMS`), else the
+    fewest (a power of two, at most :data:`MAX_K_SPLITS`) that put
+    :data:`TARGET_BLOCKS` blocks on the card; then as few as cut the
+    ``k // group`` groups into equal whole-group shares with none
+    empty.  It depends on (k, n, G) alone, never on m, so a row's result
+    does not depend on how many rows share the call."""
+    groups = k // group
+    tiles = -(-n // BLOCK_N)
+    splits = 1
+    while tiles < NUM_SMS and splits < MAX_K_SPLITS and \
+            tiles * splits < TARGET_BLOCKS:
+        splits *= 2
+    per = -(-groups // min(splits, groups))
+    return -(-groups // per)
 
 
 def _lib():
@@ -98,7 +123,7 @@ def int8_matmul(x, q, scale):
         return out
     err = _lib().int8_matmul_fwd(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        m, k, n, group, _KERNEL_DTYPES[x.dtype],
+        m, k, n, group, k_splits(k, n, group), _KERNEL_DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul_fwd launch failed: cudaError {err}")

@@ -11,7 +11,7 @@ tokens, and profiles one ``decode_multi`` horizon with ``torch.profiler``
 int8 weights with bf16 compute (``int8_matmul_kernel`` then takes the
 GEMMs' place among the kernels); ``--kv-dtype`` defaults to the compute
 dtype (``int8`` / ``fp8`` pools read through the quantized
-``paged_decode_kernel`` instantiations).  Prints one JSON object:
+``decode_kernel`` instantiations, paged walk).  Prints one JSON object:
 the host-clock step time of an unprofiled horizon, the device time per
 step summed over the profiled horizon's kernels, the device's busy and
 idle shares of the unprofiled step (the profiler slows the host, not

@@ -177,6 +177,23 @@ def test_split_is_whole_pages_and_at_most_max_splits(ps):
             -(-max_pages // (pps - 1)) > tdec.MAX_SPLITS
 
 
+@pytest.mark.parametrize("max_len", [1, 63, 64, 65, 150, 200, 256, 1024,
+                                     4096, 4097, 100000])
+def test_dense_split_is_whole_tiles_from_max_len_alone(max_len):
+    """The dense walk's split: whole SPLIT_KEYS-key tiles, at most
+    MAX_SPLITS of them, the smallest such, and a function of max_len
+    alone (the signature takes nothing else: not the batch, the bias or
+    a position)."""
+    sk = tdec.dense_split_keys(max_len)
+    n_splits = -(-max_len // sk)
+    assert sk % tdec.SPLIT_KEYS == 0 and 1 <= n_splits <= tdec.MAX_SPLITS
+    assert sk == tdec.SPLIT_KEYS or \
+        -(-max_len // (sk - tdec.SPLIT_KEYS)) > tdec.MAX_SPLITS
+    import inspect
+    assert list(inspect.signature(tdec.dense_split_keys).parameters) == \
+        ["max_len"]
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -394,3 +411,91 @@ def test_dense_kernel_matches_plain_on_card(cuda, h, kv_h, dtype, atol):
         got = tdec.decode_attention(q, k, v, bias=bias)
         want = tdec.decode_attention_plain(q, k, v, bias=bias)
         assert (got.float() - want.float()).abs().max().item() < atol
+
+
+def dense_inputs(cuda, b, h, kv_h, d, max_len, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, 1, h, d, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(b, max_len, kv_h, d, device=cuda,
+                        generator=g).to(dtype) for _ in range(2))
+    return q, k, v, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("max_len", [1, 63, 150, 200, 1024, 4096])
+def test_dense_kernel_every_max_len_on_card(cuda, max_len, dtype, atol):
+    """Any max_len runs: a last tile cut short, one to four splits; a
+    broadcast bias and a per-head one.  Sequence 2 is fully masked: the
+    kernel, like the TPU kernel, writes zeros there (a dead row), where
+    the plain softmax spreads evenly over the masked keys."""
+    b, h, kv_h, d = 3, 32, 8, 128
+    q, k, v, g = dense_inputs(cuda, b, h, kv_h, d, max_len, dtype, seed=7)
+    pos = torch.tensor([0, max_len - 1, -1], device=cuda)
+    mask = torch.where(torch.arange(max_len, device=cuda)[None] <=
+                       pos[:, None], 0.0, torch.finfo(torch.float32).min)
+    for bias in (mask[:, None, None, :],
+                 mask[:, None, None, :] + 0.5 * torch.randn(
+                     b, h, 1, max_len, device=cuda, generator=g)):
+        before = tdec.launch_counts()["decode_fwd"]
+        got = tdec.decode_attention(q, k, v, bias=bias)
+        torch.cuda.synchronize()
+        assert tdec.launch_counts()["decode_fwd"] == before + 1
+        want = tdec.decode_attention_plain(q, k, v, bias=bias)
+        assert torch.isfinite(got).all()
+        assert (got[:2].float() - want[:2].float()).abs().max().item() < atol
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv_h,d,max_len", [(32, 32, 128, 256),
+                                              (71, 1, 64, 1024)])
+def test_dense_kernel_is_batch_invariant_on_card(cuda, h, kv_h, d, max_len,
+                                                 dtype):
+    """Row i of a b = 3 call equals the b = 1 call of that sequence bit for
+    bit, and two runs are bit-equal: the split comes from max_len alone
+    and the splits merge in a fixed order."""
+    q, k, v, g = dense_inputs(cuda, 3, h, kv_h, d, max_len, dtype, seed=8)
+    bias = torch.where(torch.arange(max_len, device=cuda)[None] <=
+                       torch.tensor([5, max_len // 2, max_len - 1],
+                                    device=cuda)[:, None], 0.0,
+                       torch.finfo(torch.float32).min)[:, None, None, :]
+    full = tdec.decode_attention(q, k, v, bias=bias)
+    assert torch.equal(full, tdec.decode_attention(q, k, v, bias=bias))
+    for i in range(3):
+        alone = tdec.decode_attention(
+            q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+            v[i:i + 1].contiguous(), bias=bias[i:i + 1])
+        assert torch.equal(alone[0], full[i]), i
+
+
+@pytest.mark.cuda
+def test_dense_kernel_graph_replay_equals_eager_on_card(cuda):
+    """The host reads nothing of the bias or the cache: a CUDA graph
+    captured once replays the eager call's bits, after a new bias too."""
+    q, k, v, g = dense_inputs(cuda, 2, 32, 8, 128, 200, torch.bfloat16,
+                              seed=9)
+    pos = torch.tensor([17, 199], device=cuda)
+    bias = torch.where(torch.arange(200, device=cuda)[None] <=
+                       pos[:, None], 0.0, torch.finfo(torch.float32).min)
+    bias = bias[:, None, None, :].contiguous()
+    eager = tdec.decode_attention(q, k, v, bias=bias)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tdec.decode_attention(q, k, v, bias=bias)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdec.decode_attention(q, k, v, bias=bias)
+    before = tdec.launch_counts()["decode_fwd"]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    bias.copy_(bias.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tdec.decode_attention(q, k, v, bias=bias))
+    assert tdec.launch_counts()["decode_fwd"] == before + 1  # no wrapper

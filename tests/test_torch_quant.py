@@ -174,6 +174,34 @@ def test_int8_matmul_plain_matches_jax_kernel_bf16(m, k, n, g):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("k,n,g", [(4096, 4096, 64), (4096, 11008, 64),
+                                   (11008, 4096, 64), (4096, 32000, 64),
+                                   (11008, 37, 64), (384, 100, 32),
+                                   (64, 64, 64), (256, 8192, 16)])
+def test_k_splits_from_k_n_g_alone(k, n, g):
+    """The kernel's split of k: 1-8 blocks of equal whole-group shares,
+    none empty, enough column tiles x splits to fill the card where the
+    groups allow, and a function of (k, n, G) alone (not of m)."""
+    import inspect
+    splits = tkern.k_splits(k, n, g)
+    groups, tiles = k // g, -(-n // tkern.BLOCK_N)
+    per = -(-groups // splits)
+    assert 1 <= splits <= tkern.MAX_K_SPLITS and splits <= groups
+    assert (splits - 1) * per < groups               # no empty split
+    # a layer with a column tile for every SM is not split; else short of
+    # the target only where the shares are already as small as
+    # MAX_K_SPLITS blocks allow
+    if tiles >= tkern.NUM_SMS:
+        assert splits == 1
+    else:
+        assert tiles * splits >= tkern.TARGET_BLOCKS or \
+            per == -(-groups // min(groups, tkern.MAX_K_SPLITS))
+    assert list(inspect.signature(tkern.k_splits).parameters) == \
+        ["k", "n", "group"]
+    if (k, n) == (4096, 4096):
+        assert splits == 8 and tiles * splits == 256
+
+
 def test_int8_matmul_refuses_bad_shapes_and_counts_no_cpu_launch():
     x = torch.zeros(2, 128)
     q, s = tq.quantize(torch.from_numpy(_weights(8, 128, 16)), group_size=64)
@@ -415,11 +443,16 @@ def cuda():
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("m,k,n,g", [(1, 256, 64, 64), (4, 4096, 4096, 64),
                                      (5, 512, 200, 128), (64, 1024, 328, 32),
-                                     (9, 384, 100, 64), (3, 64, 37, 64)])
+                                     (9, 384, 100, 64), (3, 64, 37, 64),
+                                     (1, 11008, 37, 64), (64, 11008, 200, 32),
+                                     (4, 480, 96, 48), (5, 400, 128, 40),
+                                     (3, 256, 64, 8)])
 def test_int8_matmul_kernel_matches_plain_on_card(cuda, m, k, n, g, dtype,
                                                   tol):
     """|kernel - plain| / max(1, |plain|) under the tolerance; n that is
-    no multiple of 64, of 8 or of 4 takes the bound-checked loads."""
+    no multiple of 16 takes the ring's bound-checked loads, k = 11008
+    splits unevenly, a group of 48 ends inside a stage, and groups of 40
+    and 8 (no multiple of the mma's depth) take the FMA body in bf16."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(m, k, device=cuda, generator=gen).to(dtype)
     w = torch.randn(k, n, device=cuda, generator=gen) * 0.02
@@ -434,16 +467,58 @@ def test_int8_matmul_kernel_matches_plain_on_card(cuda, m, k, n, g, dtype,
 
 
 @pytest.mark.cuda
-def test_int8_matmul_kernel_is_batch_invariant_on_card(cuda):
-    """fp32: a row's result does not depend on m, on its place in the
-    batch or on the run."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("k,n", [(11008, 4096), (4096, 11008)])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 200])
+def test_int8_matmul_kernel_7b_shapes_on_card(cuda, m, k, n, dtype, tol):
+    """Llama-2-7B's MLP shapes, group 64, at decode, prefill-chunk and
+    larger m (200: four 64-row tiles, the last of 8 rows)."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, k, device=cuda, generator=gen).to(dtype)
+    q, s = tq.quantize(torch.randn(k, n, device=cuda, generator=gen) * 0.02,
+                       group_size=64)
+    got = tkern.int8_matmul(x, q, s)
+    want = tkern.int8_matmul_plain(x, q, s).float()
+    err = ((got.float() - want).abs() / want.abs().clamp(min=1.0)).max()
+    assert err.item() < tol
+
+
+@pytest.mark.cuda
+def test_int8_k_splits_run_on_card(cuda):
+    """Split counts the host picks (1, 2, 3, 4, 6 and 8 blocks a cluster)
+    launch and agree with the plain version."""
+    seen = set()
+    for n in (32768, 16384, 8192, 4096, 512, 128):
+        for k in (4096, 384):
+            splits = tkern.k_splits(k, n, 64)
+            seen.add(splits)
+            gen = torch.Generator(device=cuda).manual_seed(n + k)
+            x = torch.randn(4, k, device=cuda, generator=gen).to(
+                torch.bfloat16)
+            q, s = tq.quantize(torch.randn(k, n, device=cuda, generator=gen),
+                               group_size=64)
+            got = tkern.int8_matmul(x, q, s).float()
+            want = tkern.int8_matmul_plain(x, q, s).float()
+            err = ((got - want).abs() / want.abs().clamp(min=1.0)).max()
+            assert err.item() < 3e-2, (k, n, splits)
+    assert seen >= {1, 2, 3, 4, 6, 8}, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_kernel_is_batch_invariant_on_card(cuda, dtype):
+    """A row's result does not depend on m, on its place in the batch or
+    on the run: one arithmetic for every m (fp32 FMAs; bf16 the same
+    mma chain, whatever the number of 8-row blocks)."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn(64, 4096, device=cuda, generator=gen)
+    x = torch.randn(64, 4096, device=cuda, generator=gen).to(dtype)
     q, s = tq.quantize(torch.randn(4096, 512, device=cuda, generator=gen),
                        group_size=64)
     full = tkern.int8_matmul(x, q, s)
     assert torch.equal(full, tkern.int8_matmul(x, q, s))
-    for rows in (slice(0, 1), slice(0, 4), slice(7, 8), slice(13, 20)):
+    for rows in (slice(0, 1), slice(0, 4), slice(7, 8), slice(13, 20),
+                 slice(37, 38), slice(40, 57)):
         part = tkern.int8_matmul(x[rows].contiguous(), q, s)
         assert torch.equal(part, full[rows])
 
