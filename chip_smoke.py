@@ -66,15 +66,26 @@ Phases, each of which must pass (any failure exits nonzero):
      expanded mask, and the bound;
   5. serve phase, fp32: full Llama-2-7B (32 layers, seeded random
      weights) through init_inference + ServingScheduler, more requests
-     than slots; every request's greedy tokens must equal its own
-     generate() tokens;
-  6. serve phase, bf16: the same requests; tokens/s, TTFT and step times
-     are printed, agreement with fp32 is printed, not asserted (the
-     step-time breakdown is deepspeed_tpu_torch/profiling/decode_profile.py);
+     than slots, with the defaults: every decode horizon replayed from a
+     CUDA graph captured once per horizon bucket, and horizons chained
+     off the device carries while membership is frozen (overlap); every
+     request's greedy tokens must equal its own generate() tokens, at
+     least one horizon must be chained, and every serve phase fails when
+     a scheduler's captures exceed its horizon buckets;
+  6. serve phase, bf16: the same requests on the eager twin
+     (enable_cuda_graph=False, overlap=False), then twice on one graph
+     scheduler: the first run captures, the second is the steady one;
+     tokens/s, ms per step, TTFT p50 / p90 and TBT of both engines, the
+     captures and their seconds, the chained horizons (at least one),
+     the token agreement of the graph run with the eager twin and with
+     fp32 are printed (the step-time breakdown is
+     deepspeed_tpu_torch/profiling/decode_profile.py);
   6b. serve phase, the main quantized configuration: dtype="int8"
      (int8 weights, group 64, bf16 compute) with kv_cache_dtype="int8",
-     the same requests, the resident module quantized in place; tokens/s,
-     step and first-token times; two runs must give identical tokens;
+     the same requests, the resident module quantized in place, run as
+     phase 6 runs them (eager twin, then one graph scheduler twice);
+     tokens/s, step and first-token times; the two graph runs must give
+     identical tokens;
      summary()'s kv_pool_bytes_total must equal the leaves' bytes and
      (num_pages + 1) x kv_page_bytes; on the live pools after the run
      the quantized paged kernel must equal its plain version; agreement
@@ -101,7 +112,8 @@ Phases, each of which must pass (any failure exits nonzero):
      losses must be finite and fall; tokens/s, ms/step, peak memory and
      MFU are printed (the step breakdown is
      deepspeed_tpu_torch/profiling/train_profile.py);
-  9. the launch count of every kernel over its path (decode kernels over
+  9. the launch count of every kernel over its path, CUDA-graph replays
+     included (decode kernels over
      phases 5-6, the quantized paged kernel and int8_matmul_fwd over
      phases 6b-6c, the grouped instantiations over 6d, flash kernels
      over phase 8, block-sparse kernels over phase 4c; each must be > 0).
@@ -923,9 +935,23 @@ def make_requests(seed, vocab):
         max_new
 
 
-def serve(torch, engine, prompts, max_new, sched_kwargs):
-    from deepspeed_tpu_torch.serving import ServingScheduler
-    sched = ServingScheduler(engine, **sched_kwargs)
+def count_chains(sched):
+    """Wrap ``sched._try_chain``; the returned list collects its results
+    (True: a horizon was chained off the previous one's device carries)."""
+    results = []
+    inner = sched._try_chain
+
+    def counted():
+        ok = inner()
+        results.append(ok)
+        return ok
+    sched._try_chain = counted
+    return results
+
+
+def run_mix(torch, sched, prompts, max_new):
+    """Submit the requests to ``sched`` and run it to idle; every request
+    must finish and every page come back.  Returns (tokens, wall s)."""
     reqs = [sched.submit(p, max_new_tokens=m)
             for p, m in zip(prompts, max_new)]
     torch.cuda.synchronize()
@@ -938,7 +964,80 @@ def serve(torch, engine, prompts, max_new, sched_kwargs):
             fail(f"request {r.rid} ended {r.state}: {r.error}")
     if sched.kv.pool.pages_in_use:
         fail(f"{sched.kv.pool.pages_in_use} pages leaked")
-    return [got[r.rid] for r in reqs], sched, wall
+    return [got[r.rid] for r in reqs], wall
+
+
+def serve(torch, engine, prompts, max_new, sched_kwargs):
+    """One fresh scheduler over the requests.  Returns (tokens, scheduler,
+    wall s); ``sched.chains`` lists its ``_try_chain`` results and
+    ``sched.captures`` the horizon graphs the engine captured for it."""
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    before = engine.serving_decode_multi_capture_count()
+    sched = ServingScheduler(engine, **sched_kwargs)
+    sched.chains = count_chains(sched)
+    got, wall = run_mix(torch, sched, prompts, max_new)
+    sched.captures = engine.serving_decode_multi_capture_count() - before
+    if sched.captures > len(sched.horizon_buckets):
+        fail(f"{sched.captures} horizon graphs captured for one scheduler, "
+             f"over its {len(sched.horizon_buckets)} buckets")
+    return got, sched, wall
+
+
+def serve_numbers(s, wall, steps):
+    """The serve metrics of one run from its scheduler's summary."""
+    return {"serve_s": round(wall, 3), "tokens": s["tokens_emitted"],
+            "tokens_per_s": s["tokens_emitted"] / wall, "steps": steps,
+            "ms_per_step": wall * 1e3 / steps,
+            "ttft_ms_p50": s["ttft_ms_p50"], "ttft_ms_p90": s["ttft_ms_p90"],
+            "tpot_ms_p50": s["tpot_ms_p50"], "tbt_ms_p50": s["tbt_ms_p50"],
+            "tbt_ms_p90": s["tbt_ms_p90"],
+            "horizon_wait_frac": s.get("horizon_wait_frac"),
+            "preemptions": s["preemptions"]}
+
+
+def graph_and_eager(torch, engine, eager, prompts, max_new, sched_kwargs):
+    """The request mix on the eager twin (``enable_cuda_graph=False``,
+    ``overlap=False``) after a warm-up request, then twice on ONE graph
+    scheduler (graphs and overlap, the defaults): the first run captures,
+    the second is the steady one.  Fails when the captures exceed the
+    scheduler's buckets or no horizon was chained.  Returns (steady
+    tokens, first-run tokens, eager tokens, the numbers to print, the
+    graph scheduler)."""
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+    barrier = dict(sched_kwargs, overlap=False)
+    serve(torch, eager, [prompts[0]], [4], barrier)          # warm-up
+    got_e, sched_e, wall_e = serve(torch, eager, prompts, max_new, barrier)
+    c0 = engine.serving_decode_multi_capture_count()
+    t0 = engine.serving_decode_multi_capture_seconds()
+    sched = ServingScheduler(engine, **sched_kwargs)
+    chains = count_chains(sched)
+    first, wall1 = run_mix(torch, sched, prompts, max_new)
+    c1 = engine.serving_decode_multi_capture_count()
+    sched.metrics = ServingMetrics()          # the steady run's own
+    steps0, n_chains = sched.step_idx, sum(chains)
+    got, wall2 = run_mix(torch, sched, prompts, max_new)
+    captures = engine.serving_decode_multi_capture_count() - c0
+    out = {"graph_steady": serve_numbers(sched.metrics.summary(wall2), wall2,
+                                         sched.step_idx - steps0),
+           "graph_first_run": {"serve_s": round(wall1, 3),
+                               "tokens_per_s": sum(map(len, first)) / wall1},
+           "eager_twin": serve_numbers(sched_e.summary(), wall_e,
+                                       sched_e.step_idx),
+           "captures": captures, "horizon_buckets": sched.horizon_buckets,
+           "captures_in_steady_run":
+           engine.serving_decode_multi_capture_count() - c1,
+           "capture_s": round(engine.serving_decode_multi_capture_seconds()
+                              - t0, 3),
+           "chained_horizons": sum(chains),
+           "chained_horizons_steady_run": sum(chains) - n_chains,
+           "steady_equals_first_run": got == first,
+           "agreement_with_eager_twin": agreement(got, got_e)}
+    if captures > len(sched.horizon_buckets) or not sum(chains):
+        fail(f"graph scheduler: {captures} captures for "
+             f"{len(sched.horizon_buckets)} buckets, {sum(chains)} chained "
+             "horizons")
+    return got, first, got_e, out, sched
 
 
 def agreement(got, want):
@@ -1037,9 +1136,12 @@ def serve_quantized(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
         model, dtype="int8", kv_cache_dtype="int8", max_out_tokens=512)
     torch.cuda.synchronize()
     quantize_s = time.monotonic() - t0
-    serve(torch, engine, [prompts[0]], [4], sched_kwargs)     # warm-up
-    got, sched, wall = serve(torch, engine, prompts, max_new, sched_kwargs)
-    again, _, _ = serve(torch, engine, prompts, max_new, sched_kwargs)
+    eager = deepspeed_tpu_torch.init_inference(
+        model, dtype="int8", kv_cache_dtype="int8", max_out_tokens=512,
+        enable_cuda_graph=False)
+    got, again, got_e, runs, sched = graph_and_eager(
+        torch, engine, eager, prompts, max_new, sched_kwargs)
+    del eager
     s = sched.summary()
     leaves = sum(t.numel() * t.element_size()
                  for layer in sched.pools["layers"] for t in layer.values())
@@ -1058,14 +1160,9 @@ def serve_quantized(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
         sum(b.numel() * b.element_size() for b in model.buffers())
     emit({"phase": "serve_int8_weights_int8_kv", "compute": "bfloat16",
           "group_size": engine._config.quant.group_size,
-          "quantize_s": round(quantize_s, 3), "serve_s": round(wall, 3),
-          "tokens": s["tokens_emitted"],
-          "tokens_per_s": s["tokens_emitted"] / wall, "steps": s["steps"],
-          "ms_per_step": wall * 1e3 / s["steps"],
-          "ttft_ms_p50": s["ttft_ms_p50"], "ttft_ms_p90": s["ttft_ms_p90"],
-          "tpot_ms_p50": s["tpot_ms_p50"], "tbt_ms_p50": s["tbt_ms_p50"],
-          "preemptions": s["preemptions"],
-          "weight_dtype": s["weight_dtype"], "kv_dtype": s["kv_dtype"],
+          "quantize_s": round(quantize_s, 3), **runs["graph_steady"],
+          **runs, "weight_dtype": s["weight_dtype"],
+          "kv_dtype": s["kv_dtype"],
           "kv_pool_bytes_total": s["kv_pool_bytes_total"],
           "kv_page_bytes": page_bytes, "weight_bytes": weight_bytes,
           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
@@ -1111,6 +1208,8 @@ def serve_quantized(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
           "kv_dtype": s8["kv_dtype"],
           "kv_pool_bytes_total": s8["kv_pool_bytes_total"],
           "two_runs_identical": got8 == again8,
+          "captures": sched8.captures,
+          "chained_horizons": sum(sched8.chains),
           "agreement_with_int8_kv": agreement(got8, got[:2]),
           "live_pool_kernel_vs_plain_err": err8,
           "launches": fp8_counts})
@@ -1147,8 +1246,11 @@ def serve_int8_fp32(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
           "kv_dtype": s["kv_dtype"], "weight_dtype": s["weight_dtype"],
           "generate_s": round(gen_s, 3), "serve_s": round(wall, 3),
           "tokens_per_s": s["tokens_emitted"] / wall,
-          "preemptions": s["preemptions"],
+          "preemptions": s["preemptions"], "captures": sched.captures,
+          "chained_horizons": sum(sched.chains),
           "token_exact_vs_generate": exact, "launches": counts})
+    if not sum(sched.chains):
+        fail("int8-weight fp32 serve: no horizon was chained")
     if not all(exact):
         for i, (g, w) in enumerate(zip(got, want)):
             if g != w:
@@ -1193,6 +1295,8 @@ def serve_grouped(torch, deepspeed_tpu_torch, dec, seed):
               "requests": len(prompts), "tokens": s["tokens_emitted"],
               "serve_s": round(wall, 3),
               "paged_attention": s["paged_attention"],
+              "captures": sched.captures,
+              "chained_horizons": sum(sched.chains),
               "live_pool_kernel_vs_plain_err": err,
               "launches": counts})
         if s["kv_dtype"] != kv or \
@@ -1399,32 +1503,35 @@ def main():
           "model_build_s": round(build_s, 3), "generate_s": round(gen_s, 3),
           "serve_s": round(wall32, 3),
           "preemptions": sched32.metrics.preemptions,
+          "captures": sched32.captures,
+          "horizon_buckets": sched32.horizon_buckets,
+          "capture_s": round(engine.serving_decode_multi_capture_seconds(),
+                             3),
+          "chained_horizons": sum(sched32.chains),
           "token_exact_vs_generate": exact})
+    if not engine.cuda_graphs or not sum(sched32.chains):
+        fail(f"fp32 serve: graphs {engine.cuda_graphs}, "
+             f"{sum(sched32.chains)} chained horizons")
     if not all(exact):
         for i, (g, w) in enumerate(zip(got32, want)):
             if g != w:
                 emit({"mismatch": i, "serve": g, "generate": w})
         fail("fp32 serving is not token-exact against generate()")
 
-    # ---- serve phase, bf16 (the same module, cast in place)
+    # ---- serve phase, bf16 (the same module, cast in place): the eager
+    # twin, then one graph scheduler twice (the second run is steady)
     engine = deepspeed_tpu_torch.init_inference(
         model, dtype="bfloat16", kv_cache_dtype="bfloat16",
         max_out_tokens=512)
-    serve(torch, engine, [prompts[0]], [4], sched_kwargs)     # warm-up
-    got16, sched16, wall16 = serve(torch, engine, prompts, max_new,
-                                   sched_kwargs)
-    s = sched16.summary()
-    agree = agreement(got16, got32)
-    emit({"phase": "serve_bf16", "serve_s": round(wall16, 3),
-          "tokens": s["tokens_emitted"],
-          "tokens_per_s": s["tokens_emitted"] / wall16,
-          "steps": s["steps"], "ms_per_step": wall16 * 1e3 / s["steps"],
-          "ttft_ms_p50": s["ttft_ms_p50"], "ttft_ms_p90": s["ttft_ms_p90"],
-          "tpot_ms_p50": s["tpot_ms_p50"], "tbt_ms_p50": s["tbt_ms_p50"],
-          "preemptions": s["preemptions"],
-          "agreement_with_fp32": agree})
+    eager = deepspeed_tpu_torch.init_inference(
+        model, dtype="bfloat16", kv_cache_dtype="bfloat16",
+        max_out_tokens=512, enable_cuda_graph=False)
+    got16, first16, _, runs, sched16 = graph_and_eager(
+        torch, engine, eager, prompts, max_new, sched_kwargs)
+    emit({"phase": "serve_bf16", **runs["graph_steady"], **runs,
+          "agreement_with_fp32": agreement(got16, got32)})
     counts = dec.launch_counts()
-    del engine, sched32, sched16, logits
+    del engine, eager, sched32, sched16, logits
     torch.cuda.empty_cache()
 
     # ---- quantized serve phases (6b-6d), each with its own counts

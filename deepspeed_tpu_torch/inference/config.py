@@ -2,10 +2,11 @@
 
 The same pydantic surface for the fields this port runs — ``dtype``,
 ``quant``, ``kv_cache_dtype``, ``max_out_tokens``, ``paged_kernel``,
-``replace_with_kernel_inject`` and ``tensor_parallel`` (tp_size 1) —
-plus ``device``.  The two quantization knobs are independent, as in the
-JAX config (``inference/config.py:86-107``): ``dtype="int8"`` means int8
-WEIGHTS with bfloat16 compute (it sets ``quant.enabled``);
+``replace_with_kernel_inject``, ``enable_cuda_graph`` and
+``tensor_parallel`` (tp_size 1) — plus ``device``.  The two
+quantization knobs are independent, as in the JAX config
+(``inference/config.py:86-107``): ``dtype="int8"`` means int8 WEIGHTS
+with bfloat16 compute (it sets ``quant.enabled``);
 ``quant={"enabled": True}`` beside a float ``dtype`` keeps that compute
 dtype; ``kv_cache_dtype="int8"|"fp8"`` quantizes the paged KV pools and
 is not weight quantization.  A field the JAX
@@ -22,7 +23,6 @@ from deepspeed_tpu_torch.ops.quant.kv import KV_QUANT_DTYPES
 
 # JAX-package config fields the port does not run yet -> ROADMAP.md item
 UNPORTED_FIELDS = {
-    "enable_cuda_graph": "Queue A5 (overlap and CUDA-graph horizons)",
     "mesh": "Queue A10 (multi-GPU serving)",
     "mesh_dcn": "Queue A10 (multi-GPU serving)",
     "moe": "Queue A10 (MoE serving)",
@@ -72,6 +72,11 @@ class DeepSpeedInferenceConfig(BaseModel):
     # attn_impl is "auto" (the flash kernels on a CUDA tensor), never
     # touching the caller's module (inference/engine.py:170-178)
     replace_with_kernel_inject: bool = Field(False, alias="kernel_inject")
+    # decode horizons as CUDA graphs (inference/engine.py decode_multi):
+    # None replays graphs on a CUDA engine and runs eagerly on the CPU
+    # (the counterpart of XLA always compiling); True demands graphs, so
+    # a CPU engine is refused; False launches eagerly on the card too
+    enable_cuda_graph: Optional[bool] = None
     # None -> CUDA (raises when no card is visible); "cpu" runs the
     # plain PyTorch versions of the kernels on the host
     device: Optional[Any] = None

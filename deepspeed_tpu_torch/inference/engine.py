@@ -7,11 +7,23 @@ is enabled), ``generate`` over a dense KV cache bucketed to 128
 positions, the greedy contract of ``sample_from_logits``, and the slot
 primitives the paged scheduler drives — ``init_paged_cache`` (float or
 int8 / fp8 pools, per pool), ``prefill_into_slots``, ``decode_step`` and
-``decode_multi``.  ``jit`` has no counterpart: PyTorch runs eagerly,
-so ``decode_multi``'s ``lax.scan`` is a Python loop over the horizon
-whose carries (token, active mask, lengths, emitted count) stay on the
-device; the host syncs once per horizon, when the scheduler pulls the
-token block.  CUDA graphs for the horizon are ROADMAP.md Queue A5.
+``decode_multi``.
+
+``decode_multi`` is the JAX ``lax.scan`` over the horizon written as a
+Python loop whose carries (token, active mask, lengths, emitted count)
+stay on the device.  The JAX package jits it once per horizon bucket;
+here a CUDA engine captures it once per bucket as a CUDA graph (over
+static input buffers and the pools it was captured with) and replays
+it, unless the config's ``enable_cuda_graph`` is False.  A graph lives
+as long as its pools and the module's weights it was captured over: it
+goes when a pool leaf is freed, and every graph goes when a weight is
+replaced (by this engine or another over the same module).  A CPU engine
+runs the loop eagerly.  Host arrays reach the card through a ring of
+pinned buffers with non-blocking copies (:class:`_PinnedRing`), and the
+token block comes back the same way (:meth:`copy_to_host_async`), so a
+dispatch never waits for the device and an array the scheduler mutates
+after a dispatch never reaches the horizon in flight.  Prefill chunks
+run eagerly (ROADMAP.md Queue A5b).
 
 Sampled decoding (``do_sample=True`` with a temperature) is ROADMAP.md
 Queue A6 and raises; greedy is an fp32 argmax whose ties go to the
@@ -19,12 +31,16 @@ lowest token id (``torch.argmax`` returns the first maximal index).
 """
 
 import dataclasses
+import itertools
+import time
+import weakref
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models import llama
+from deepspeed_tpu_torch.ops import launch_counter
 from deepspeed_tpu_torch.ops.attention.decode import paged_kernel_decision
 from deepspeed_tpu_torch.ops.quant import kv as kvq
 from deepspeed_tpu_torch.ops.quant.quantizer import (dequantize_tree,
@@ -33,6 +49,11 @@ from deepspeed_tpu_torch.utils.logging import log_dist
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+_PINNED_RING = 8          # host staging buffers in flight, at most
+_DECODE_DTYPES = {"tok": np.int32, "active": np.bool_, "lengths": np.int32,
+                  "budgets": np.int32, "eos_ids": np.int32,
+                  "emitted": np.int32, "keep": np.bool_,
+                  "page_table": np.int32}
 
 
 def check_greedy(do_sample, temperature):
@@ -50,6 +71,120 @@ def _sample_tokens(logits, do_sample=False, temperature=1.0):
     return torch.argmax(logits.float(), dim=-1)
 
 
+def _torch_dtype(np_dtype):
+    return torch.from_numpy(np.empty(0, np_dtype)).dtype
+
+
+class _PinnedRing:
+    """Host arrays to the card with one non-blocking copy from pinned
+    memory.  The arrays are packed (16-byte aligned) into one of
+    ``depth`` pinned buffers, which is reused only once the event of its
+    previous copy has passed: a pageable copy would synchronize the
+    stream behind the horizon in flight, and a pinned buffer rewritten
+    while its copy is pending would hand the device the scheduler's
+    next values (the reference's race, ROADMAP.md Queue C)."""
+
+    def __init__(self, device, depth=_PINNED_RING):
+        self.device = device
+        self._bufs = [None] * depth
+        self._events = [None] * depth
+        self._next = 0
+
+    @staticmethod
+    def _offsets(arrays):
+        offs, total = [], 0
+        for a in arrays:
+            offs.append(total)
+            total += -(-a.nbytes // 16) * 16
+        return offs, max(total, 16)
+
+    def stage(self, arrays, out=None):
+        """numpy ``arrays`` -> ``(buffer, views)``: device tensors, views
+        of one uint8 ``buffer`` (``out`` when given: a buffer an earlier
+        call returned for arrays of the same shapes and dtypes)."""
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        offs, total = self._offsets(arrays)
+        i = self._next
+        self._next = (i + 1) % len(self._bufs)
+        if self._events[i] is None:
+            self._events[i] = torch.cuda.Event()
+        else:
+            self._events[i].synchronize()
+        host = self._bufs[i]
+        if host is None or host.numel() < total:
+            host = self._bufs[i] = torch.empty(total, dtype=torch.uint8,
+                                               pin_memory=True)
+        flat = host.numpy()
+        for a, o in zip(arrays, offs):
+            flat[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+        if out is None:
+            out = torch.empty(total, dtype=torch.uint8, device=self.device)
+        out[:total].copy_(host[:total], non_blocking=True)
+        self._events[i].record()
+        return out, [out[o:o + a.nbytes].view(_torch_dtype(a.dtype))
+                     .reshape(a.shape) for a, o in zip(arrays, offs)]
+
+
+class HostCopy:
+    """Device tensors on their way to the host: pinned buffers filled by
+    non-blocking copies and an event (the JAX ``copy_to_host_async``).
+    :meth:`wait` blocks on the event and returns numpy arrays."""
+
+    def __init__(self, tensors):
+        if tensors[0].device.type == "cpu":
+            self._host, self._event = list(tensors), None
+            return
+        self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                      for t in tensors]
+        for h, t in zip(self._host, tensors):
+            h.copy_(t, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record()
+
+    def wait(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
+
+
+class _HorizonGraph:
+    """``decode_multi``'s body for one (pools, horizon, slot count, page
+    table width), captured once as a CUDA graph over static inputs: views
+    of one device buffer the pinned ring fills in a single copy.  The
+    graph replays the raw addresses of the pools and weights but holds
+    neither: the engine drops it before either is freed or replaced."""
+
+    def __init__(self, engine, pools, horizon, slots, max_pages):
+        dev = engine.device
+        zeros = [np.zeros((slots, max_pages) if n == "page_table"
+                          else slots, dt)
+                 for n, dt in _DECODE_DTYPES.items()]
+        self.buffer, views = engine._ring.stage(zeros)
+        self.inputs = dict(zip(_DECODE_DTYPES, views))
+        body = {k: v for k, v in self.inputs.items() if k != "keep"}
+        # warm-up, eager on a side stream: every slot inactive, so the
+        # pools see writes to the sink page only; it also builds and
+        # loads the kernels and runs their first-use set-up, none of
+        # which may happen under capture
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            engine._decode_body(pools, horizon, **body)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with launch_counter.recording() as self.launches, \
+                torch.cuda.graph(self.graph):
+            self.outputs = engine._decode_body(pools, horizon, **body)
+
+    def replay(self):
+        """Run the captured horizon on the current stream and copy its
+        outputs out of the static buffers (in stream order), so the next
+        replay cannot overwrite a block not yet harvested."""
+        self.graph.replay()
+        launch_counter.replay(self.launches)
+        return tuple(t.clone() for t in self.outputs)
+
+
 class InferenceEngine:
     """Wraps a ``Llama`` module for generation and paged serving."""
 
@@ -64,6 +199,17 @@ class InferenceEngine:
         if config.paged_kernel == "force" and self.device.type != "cuda":
             raise ValueError("paged_kernel='force' needs the kernels, which "
                              "run only on a CUDA device")
+        if config.enable_cuda_graph and self.device.type != "cuda":
+            raise ValueError("enable_cuda_graph=True needs a CUDA device: "
+                             "a CPU engine runs the decode loop eagerly")
+        self.cuda_graphs = self.device.type == "cuda" and \
+            config.enable_cuda_graph is not False
+        self._graphs = {}          # pool key -> {(horizon, ...): graph}
+        self._graph_weights = None  # the weights the graphs were captured over
+        self._captures = 0
+        self._capture_s = 0.0
+        self._ring = _PinnedRing(self.device) \
+            if self.device.type == "cuda" else None
         self.dtype = DTYPES[config.dtype]
         # a torch dtype (float pools) or the quantized kv-dtype NAME
         # ("int8" / "fp8": payload pools + per-row f32 scale pools,
@@ -82,6 +228,9 @@ class InferenceEngine:
             model = fresh
         self.module = model.to(device=self.device).eval()
         self.module.requires_grad_(False)
+        # the submodules that own tensors: the weights a graph reads
+        self._weight_owners = [m for m in self.module.modules()
+                               if m._parameters or m._buffers]
         if not config.quant.enabled and any(
                 getattr(m, "quantized", False) for m in model.modules()):
             raise ValueError(
@@ -301,10 +450,15 @@ class InferenceEngine:
                                  self._resolve_kv_dtype(kv_dtype))
 
     def _stage(self, x, dtype):
-        """Host array (or a carry already on the device) -> device tensor."""
+        """Host array (or a carry already on the device) -> device tensor.
+        A host array is copied (on a CUDA engine through the pinned ring),
+        never aliased: the scheduler mutates its arrays after a call."""
         if isinstance(x, torch.Tensor):
             return x.to(device=self.device, dtype=dtype)
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        x = np.asarray(x)
+        if self._ring is None:
+            return torch.tensor(x, dtype=dtype)
+        return self._ring.stage([x])[1][0].to(dtype)
 
     @torch.no_grad()
     def prefill_into_slots(self, ids_chunk, slot, n_valid, page_table,
@@ -336,7 +490,7 @@ class InferenceEngine:
 
     @torch.no_grad()
     def decode_multi(self, toks, active, page_table, lengths, pools, *,
-                     horizon, budgets, eos_ids, emitted=None,
+                     horizon, budgets, eos_ids, emitted=None, keep=None,
                      do_sample=False, temperature=1.0):
         """``horizon`` decode steps over all slots with the feedback on the
         device.  Returns ``(toks_block [slots, H], valid [slots, H],
@@ -345,18 +499,65 @@ class InferenceEngine:
         (-1 = none) or once its ``emitted`` count reaches
         ``budgets[slot]``; frozen slots write no K/V (the sink takes their
         rows), advance no length and emit ``valid=False`` rows — the JAX
-        ``decode_multi`` rules (``engine.py:829-873``)."""
+        ``decode_multi`` rules (``engine.py:829-873``).  ``keep`` (host
+        bool [slots]) is ANDed into ``active`` on the device: a chained
+        dispatch freezes the slots the host has closed since.
+
+        Each input is a host array or a device tensor (a chained
+        dispatch passes the previous horizon's carries).  On a CUDA
+        engine with graphs the horizon replays the graph of its bucket
+        (:meth:`serving_decode_multi_capture_count`); the outputs are
+        fresh tensors, never the graph's static buffers."""
         check_greedy(do_sample, temperature)
-        tok = self._stage(toks, torch.int32)
-        active = self._stage(active, torch.bool)
-        lengths = self._stage(lengths, torch.int32)
-        budgets = self._stage(budgets, torch.int32)
-        eos_ids = self._stage(eos_ids, torch.int32)
-        emitted = torch.zeros_like(budgets) if emitted is None \
-            else self._stage(emitted, torch.int32)
-        page_table = self._stage(page_table, torch.int32)
+        horizon = int(horizon)
+        slots = len(budgets)
+        values = {"tok": toks, "active": active, "lengths": lengths,
+                  "budgets": budgets, "eos_ids": eos_ids,
+                  "emitted": np.zeros(slots, np.int32) if emitted is None
+                  else emitted,
+                  "keep": np.ones(slots, bool) if keep is None else keep,
+                  "page_table": page_table}
+        if self._ring is None:
+            inputs = {k: self._stage(v, _torch_dtype(_DECODE_DTYPES[k]))
+                      for k, v in values.items()}
+            graph = None
+        else:
+            graph = self._horizon_graph(pools, horizon, slots,
+                                        np.shape(page_table)[1]) \
+                if self.cuda_graphs else None
+            inputs = self._stage_decode_inputs(values, graph)
+        mask = inputs.pop("keep")
+        if graph is not None:
+            if keep is not None:     # the static buffer, in place
+                inputs["active"].logical_and_(mask)
+            return graph.replay() + (pools,)
+        if keep is not None:         # never in place: it may be a carry
+            inputs["active"] = inputs["active"] & mask
+        return self._decode_body(pools, horizon, **inputs) + (pools,)
+
+    def _stage_decode_inputs(self, values, graph):
+        """Host arrays in one pinned copy (into the graph's static buffer,
+        or a fresh one), then device carries device to device, in stream
+        order after it."""
+        names = list(_DECODE_DTYPES)
+        host = [np.asarray(values[k], _DECODE_DTYPES[k])
+                if not isinstance(values[k], torch.Tensor)
+                else np.zeros(np.shape(values[k]), _DECODE_DTYPES[k])
+                for k in names]
+        _, views = self._ring.stage(
+            host, out=None if graph is None else graph.buffer)
+        inputs = dict(zip(names, views))
+        for k in names:
+            if isinstance(values[k], torch.Tensor):
+                inputs[k].copy_(values[k])
+        return inputs
+
+    def _decode_body(self, pools, horizon, *, tok, active, lengths,
+                     budgets, eos_ids, emitted, page_table):
+        """The horizon loop (the JAX scan body): device tensors in, the
+        six outputs of :meth:`decode_multi` out; no host sync."""
         out_toks, out_valid = [], []
-        for _ in range(int(horizon)):
+        for _ in range(horizon):
             cache = dict(pools, page_table=page_table, lengths=lengths,
                          active=active)
             logits, cache = self.module(tok.long()[:, None], cache=cache)
@@ -369,4 +570,50 @@ class InferenceEngine:
             active = active & (nxt != eos_ids) & (emitted < budgets)
             tok = nxt
         return (torch.stack(out_toks, 1), torch.stack(out_valid, 1), tok,
-                active, lengths, emitted, pools)
+                active, lengths, emitted)
+
+    def _horizon_graph(self, pools, horizon, slots, max_pages):
+        """The cached graph for this bucket over these pools, captured on
+        first use.  A recast, dequantized or re-quantized weight (from
+        any engine over this module) drops every graph; a pool set's
+        graphs go when the first of its leaves is freed, before the
+        allocator can hand that address to another tensor."""
+        weights = tuple((t.data_ptr(), t.dtype)
+                        for m in self._weight_owners
+                        for t in itertools.chain(m._parameters.values(),
+                                                 m._buffers.values())
+                        if t is not None)
+        if weights != self._graph_weights:
+            self._graphs.clear()
+            self._graph_weights = weights
+        leaves = [t for layer in pools["layers"] for t in layer.values()]
+        key = tuple(t.data_ptr() for t in leaves)
+        graphs = self._graphs.get(key)
+        if graphs is None:
+            graphs = self._graphs[key] = {}
+            for t in leaves:
+                weakref.finalize(t, self._graphs.pop, key, None)
+        shape = (horizon, slots, max_pages)
+        if shape not in graphs:
+            t0 = time.monotonic()
+            graphs[shape] = _HorizonGraph(self, pools, horizon, slots,
+                                          max_pages)
+            self._captures += 1
+            self._capture_s += time.monotonic() - t0
+        return graphs[shape]
+
+    def serving_decode_multi_capture_count(self):
+        """Horizon graphs captured by this engine so far (the counterpart
+        of the JAX ``serving_decode_multi_compile_count``)."""
+        return self._captures
+
+    def serving_decode_multi_capture_seconds(self):
+        """Wall seconds this engine spent capturing horizon graphs
+        (warm-up included)."""
+        return self._capture_s
+
+    def copy_to_host_async(self, *tensors):
+        """Start copying device tensors to the host (pinned buffers,
+        non-blocking) and return a :class:`HostCopy`; its ``wait()``
+        gives numpy arrays."""
+        return HostCopy(tensors)

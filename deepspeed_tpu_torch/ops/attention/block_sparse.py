@@ -37,19 +37,20 @@ import torch
 from deepspeed_tpu_torch.ops.attention.flash import (
     _KERNEL_DTYPES, _bwd_inputs, _check_cuda, _tma_operands,
     _raise_if_failed, _scale, _strides, flash_bwd_plain, flash_fwd_plain)
+from deepspeed_tpu_torch.ops.launch_counter import LaunchCounter
 
-_LAUNCHES = {"sparse_fwd": 0, "sparse_bwd_dq": 0, "sparse_bwd_dkv": 0}
+_LAUNCHES = LaunchCounter("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 TILE = 64            # the kernels' rows per tile (flash_kernels.cuh kBQ)
 
 
 def launch_counts():
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
+    """Kernel launches since the last :func:`reset_launch_counts`
+    (CUDA-graph replays included, ``ops/launch_counter.py``)."""
+    return _LAUNCHES.counts()
 
 
 def reset_launch_counts():
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    _LAUNCHES.reset()
 
 
 def _lib():
@@ -254,7 +255,7 @@ def _launch(name, index, tensors, outs, causal, scale):
         int(causal), _scale(scale, d), _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed(name, err)
-    _LAUNCHES[name] += 1
+    _LAUNCHES.add(name)
 
 
 def sparse_fwd(q, k, v, index, *, causal, scale=None):

@@ -25,11 +25,12 @@ show that the main path went through the kernels.
 import torch
 
 from deepspeed_tpu_torch.ops.attention.reference import mha_reference
+from deepspeed_tpu_torch.ops.launch_counter import LaunchCounter
 
 NEG_INF = -1e30   # masked-score floor, as ops/attention/flash.py:42
 
-_LAUNCHES = {"paged_decode_fwd": 0, "paged_decode_quant_fwd": 0,
-             "decode_fwd": 0}
+_LAUNCHES = LaunchCounter("paged_decode_fwd", "paged_decode_quant_fwd",
+                          "decode_fwd")
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_STORAGE = {torch.int8: 1}          # + float8_e4m3fn: 2, where built
 if hasattr(torch, "float8_e4m3fn"):
@@ -40,13 +41,13 @@ MAX_SPLITS = 4         # splits of a sequence: one thread block cluster
 
 
 def launch_counts():
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
+    """Kernel launches since the last :func:`reset_launch_counts`
+    (CUDA-graph replays included, ``ops/launch_counter.py``)."""
+    return _LAUNCHES.counts()
 
 
 def reset_launch_counts():
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    _LAUNCHES.reset()
 
 
 def pages_per_split(page_size, max_pages):
@@ -263,7 +264,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
             out.data_ptr(), page_table.data_ptr(), positions.data_ptr(),
             *shape_args, stream)
     _raise_if_failed(name, err)
-    _LAUNCHES[name] += 1
+    _LAUNCHES.add(name)
     return out
 
 
@@ -323,5 +324,5 @@ def decode_attention(q, k_cache, v_cache, *, bias, scale=None):
         dense_split_keys(max_len), scale, _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed("decode_fwd", err)
-    _LAUNCHES["decode_fwd"] += 1
+    _LAUNCHES.add("decode_fwd")
     return out

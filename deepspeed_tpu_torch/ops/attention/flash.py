@@ -34,21 +34,23 @@ import ctypes
 
 import torch
 
+from deepspeed_tpu_torch.ops.launch_counter import LaunchCounter
+
 NEG_INF = -1e30   # masked-score floor (flash.py:42), not -inf
 
-_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+_LAUNCHES = LaunchCounter("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 
 
 def launch_counts():
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
+    """Kernel launches since the last :func:`reset_launch_counts`
+    (CUDA-graph replays included, ``ops/launch_counter.py``)."""
+    return _LAUNCHES.counts()
 
 
 def reset_launch_counts():
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    _LAUNCHES.reset()
 
 
 def _lib():
@@ -225,7 +227,7 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
         int(causal), _scale(scale, d), _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed("flash_fwd", err)
-    _LAUNCHES["flash_fwd"] += 1
+    _LAUNCHES.add("flash_fwd")
     return o, lse
 
 
@@ -257,7 +259,7 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
         _scale(scale, d), _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed(name, err)
-    _LAUNCHES[name] += 1
+    _LAUNCHES.add(name)
 
 
 def flash_bwd(q, k, v, o, lse, do, dlse=None, *, causal=True, scale=None):

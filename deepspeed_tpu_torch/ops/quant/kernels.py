@@ -22,7 +22,9 @@ The wrapper counts its launches (:func:`launch_counts`).
 
 import torch
 
-_LAUNCHES = {"int8_matmul_fwd": 0}
+from deepspeed_tpu_torch.ops.launch_counter import LaunchCounter
+
+_LAUNCHES = LaunchCounter("int8_matmul_fwd")
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_N = 128          # output columns of a block of the kernel
 MAX_K_SPLITS = 8       # blocks of a thread block cluster
@@ -31,13 +33,13 @@ TARGET_BLOCKS = 256    # about two blocks for each of them
 
 
 def launch_counts():
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
+    """Kernel launches since the last :func:`reset_launch_counts`
+    (CUDA-graph replays included, ``ops/launch_counter.py``)."""
+    return _LAUNCHES.counts()
 
 
 def reset_launch_counts():
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    _LAUNCHES.reset()
 
 
 def k_splits(k, n, group):
@@ -127,5 +129,5 @@ def int8_matmul(x, q, scale):
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul_fwd launch failed: cudaError {err}")
-    _LAUNCHES["int8_matmul_fwd"] += 1
+    _LAUNCHES.add("int8_matmul_fwd")
     return out

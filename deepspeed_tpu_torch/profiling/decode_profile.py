@@ -2,22 +2,29 @@
 
     python -m deepspeed_tpu_torch.profiling.decode_profile \
         [--layers 32] [--batch 4] [--context 128] [--horizon 8] \
-        [--dtype bfloat16|float32|int8] [--kv-dtype int8|fp8|...] [--seed 0]
+        [--dtype bfloat16|float32|int8] [--kv-dtype int8|fp8|...] \
+        [--graph | --eager] [--seed 0]
 
 Builds Llama-2-7B at full width (``--layers`` cuts depth) with seeded
 random weights, fills ``--batch`` slots of a paged pool to ``--context``
 tokens, and profiles one ``decode_multi`` horizon with ``torch.profiler``
-(CPU + CUDA activities) after a warm-up horizon.  ``--dtype int8`` serves
-int8 weights with bf16 compute (``int8_matmul_kernel`` then takes the
-GEMMs' place among the kernels); ``--kv-dtype`` defaults to the compute
-dtype (``int8`` / ``fp8`` pools read through the quantized
-``decode_kernel`` instantiations, paged walk).  Prints one JSON object:
+(CPU + CUDA activities) after a warm-up horizon: replayed from its CUDA
+graph (``--graph``; the warm-up captures it), launched eagerly
+(``--eager``, the ``enable_cuda_graph=False`` twin over the same module
+and pools), or both, one after the other (the default).  ``--dtype
+int8`` serves int8 weights with bf16 compute (``int8_matmul_kernel``
+then takes the GEMMs' place among the kernels); ``--kv-dtype``
+defaults to the compute dtype (``int8`` / ``fp8`` pools read through
+the quantized ``decode_kernel`` instantiations, paged walk).  Prints
+one JSON object:
 the host-clock step time of an unprofiled horizon, the device time per
 step summed over the profiled horizon's kernels, the device's busy and
 idle shares of the unprofiled step (the profiler slows the host, not
 the kernels), kernels launched per step, the weight bytes a step must
 read over the card's memory rate, and the kernels with the most device
-time.  Needs a CUDA device; it does not run anywhere else.
+time, per mode, with the graph launches per step and the device time
+of one horizon between CUDA events.  Needs a CUDA device;
+it does not run anywhere else.
 """
 
 import argparse
@@ -31,49 +38,21 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32)
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--context", type=int, default=128)
-    ap.add_argument("--horizon", type=int, default=8)
-    ap.add_argument("--dtype", default="bfloat16")
-    ap.add_argument("--kv-dtype", default=None)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("decode_profile: needs a CUDA device")
+def profile_mode(engine, call, horizon):
+    """Host and device time of one horizon on ``engine`` (after a
+    warm-up horizon, which captures a graph engine's bucket)."""
     from torch.profiler import ProfilerActivity, profile
 
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models.llama import Llama, llama2_7b
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    cfg = llama2_7b(num_layers=args.layers)
-    kv_dtype = args.kv_dtype or \
-        ("bfloat16" if args.dtype == "int8" else args.dtype)
-    engine = deepspeed_tpu_torch.init_inference(
-        Llama(cfg, device="cuda"), dtype=args.dtype,
-        kv_cache_dtype=kv_dtype).init_params(args.seed)
-    ps = 16
-    maxp = -(-(args.context + args.horizon) // ps)
-    pools = engine.init_paged_cache(args.batch * maxp, ps)
-    table = np.arange(args.batch * maxp, dtype=np.int32).reshape(
-        args.batch, maxp)
-    call = dict(toks=np.zeros(args.batch, np.int32),
-                active=np.ones(args.batch, bool), page_table=table,
-                lengths=np.full(args.batch, args.context, np.int32),
-                pools=pools, horizon=args.horizon,
-                budgets=np.full(args.batch, args.horizon, np.int32),
-                eos_ids=np.full(args.batch, -1, np.int32))
     engine.decode_multi(**call)[0].cpu()            # warm-up
     torch.cuda.synchronize()
     t0 = time.monotonic()
     engine.decode_multi(**call)[0].cpu()
     wall_ms = (time.monotonic() - t0) * 1e3
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    engine.decode_multi(**call)
+    end.record()
+    end.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -87,25 +66,78 @@ def main():
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in (*engine.module.parameters(),
-                                 *engine.module.buffers()))
-    print(json.dumps({
-        "gpu": smi, "model": "llama2-7b", "layers": args.layers,
-        "dtype": args.dtype, "kv_dtype": kv_dtype, "batch": args.batch,
-        "context": args.context,
-        "horizon": args.horizon,
-        "step_ms": wall_ms / args.horizon,
-        "profiled_step_ms": profiled_ms / args.horizon,
-        "device_ms_per_step": device_ms / args.horizon,
+    return {
+        "step_ms": wall_ms / horizon,
+        "profiled_step_ms": profiled_ms / horizon,
+        "device_ms_per_step": device_ms / horizon,
+        "event_ms_per_step": start.elapsed_time(end) / horizon,
         "device_busy_share": device_ms / wall_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms,
-        "kernel_launches_per_step": launches / args.horizon,
-        "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "kernel_launches_per_step": launches / horizon,
+        "graph_launches_per_step": 1.0 / horizon if engine.cuda_graphs
+        else 0.0,
+        "captures": engine.serving_decode_multi_capture_count(),
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "ms_per_step": e.self_device_time_total / 1e3 /
-                         args.horizon} for e in top],
-    }), flush=True)
+                         horizon} for e in top]}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--context", type=int, default=128)
+    ap.add_argument("--horizon", type=int, default=8)
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--kv-dtype", default=None)
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--graph", action="store_true",
+                      help="only the replayed horizon")
+    mode.add_argument("--eager", action="store_true",
+                      help="only the eager horizon")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("decode_profile: needs a CUDA device")
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama, llama2_7b
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cfg = llama2_7b(num_layers=args.layers)
+    kv_dtype = args.kv_dtype or \
+        ("bfloat16" if args.dtype == "int8" else args.dtype)
+    model = Llama(cfg, device="cuda")
+    kw = dict(dtype=args.dtype, kv_cache_dtype=kv_dtype)
+    engine = deepspeed_tpu_torch.init_inference(model, **kw).init_params(
+        args.seed)
+    modes = ["graph"] if args.graph else ["eager"] if args.eager \
+        else ["graph", "eager"]
+    engines = {"graph": engine, "eager": deepspeed_tpu_torch.init_inference(
+        model, enable_cuda_graph=False, **kw)}
+    ps = 16
+    maxp = -(-(args.context + args.horizon) // ps)
+    pools = engine.init_paged_cache(args.batch * maxp, ps)
+    table = np.arange(args.batch * maxp, dtype=np.int32).reshape(
+        args.batch, maxp)
+    call = dict(toks=np.zeros(args.batch, np.int32),
+                active=np.ones(args.batch, bool), page_table=table,
+                lengths=np.full(args.batch, args.context, np.int32),
+                pools=pools, horizon=args.horizon,
+                budgets=np.full(args.batch, args.horizon, np.int32),
+                eos_ids=np.full(args.batch, -1, np.int32))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in (*model.parameters(), *model.buffers()))
+    out = {"gpu": smi, "model": "llama2-7b", "layers": args.layers,
+           "dtype": args.dtype, "kv_dtype": kv_dtype, "batch": args.batch,
+           "context": args.context, "horizon": args.horizon,
+           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+    for name in modes:
+        out[name] = profile_mode(engines[name], call, args.horizon)
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

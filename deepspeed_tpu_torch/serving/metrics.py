@@ -1,8 +1,10 @@
 """Serving observability — the counters the scheduler core records
 (counterpart of ``ServingMetrics`` in ``deepspeed_tpu/serving/metrics.py``).
 
-TTFT / per-token latency / horizon-burst gaps and the per-step queue and
-pool gauges.  Latency samples are durations from ``time.monotonic()``.
+TTFT / per-token latency / horizon-burst gaps, the per-step queue and
+pool gauges, and per harvested horizon the tokens delivered and the time
+the host waited on the device.  Latency samples are durations from
+``time.monotonic()``.
 Terminal outcomes are counted distinctly (completed / failed / shed /
 cancelled).  The prefix-cache,
 speculative, tenancy and memory-telemetry counters, and the monitor
@@ -37,6 +39,8 @@ class ServingMetrics:
         self.page_util = []           # pool utilization per step
         self.queue_depths = []
         self.horizons = []            # fused decode horizon per harvest
+        self.horizon_tokens = 0       # tokens those harvests delivered
+        self.horizon_wait_s = 0.0     # harvest time blocked on the device
         self.device_wait_s = 0.0      # step time blocked on the device
         self.host_s = 0.0             # step time doing host bookkeeping
 
@@ -52,8 +56,13 @@ class ServingMetrics:
         horizons deliver tokens in bursts)."""
         self.tbt_s.append(gap_s)
 
-    def record_horizon(self, horizon):
+    def record_horizon(self, horizon, tokens, device_wait_s):
+        """One fused decode horizon was harvested: its step count, the
+        tokens it delivered, and how long the host blocked waiting for
+        the device (0 when the overlapped copy had already landed)."""
         self.horizons.append(horizon)
+        self.horizon_tokens += tokens
+        self.horizon_wait_s += device_wait_s
 
     def record_first_token(self, ttft_s):
         self.ttft_s.append(ttft_s)
@@ -97,6 +106,9 @@ class ServingMetrics:
             "queue_depth_peak": int(np.max(self.queue_depths))
             if self.queue_depths else 0,
         }
+        out["horizon_wait_s"] = round(self.horizon_wait_s, 6)
         if wall_s:
             out["tokens_per_sec"] = round(self.tokens_emitted / wall_s, 3)
+            # the share of the run the host spent blocked on the device
+            out["horizon_wait_frac"] = round(self.horizon_wait_s / wall_s, 4)
         return out

@@ -2,18 +2,18 @@
 ``deepspeed_tpu/serving/scheduler.py`` on the PyTorch engine.
 
 Orca (OSDI '22) scheduling over the paged KV cache: requests join and
-leave the running batch at token granularity.  Each ``step()``:
+leave the running batch at token granularity.  Each barrier ``step()``:
 
   1. sweeps cancellations and expired deadlines,
   2. admits waiting requests into free slots (the pool must hold the
      whole prompt; a deadline the request cannot meet sheds it now),
   3. advances every prefilling slot by ONE prompt chunk (chunked
      prefill), sampling the first token of slots that finish,
-  4. runs ONE fused decode horizon over the running slots — up to
+  4. dispatches ONE fused decode horizon over the running slots — up to
      ``decode_horizon_steps`` tokens per slot in one ``decode_multi``
      call, with token feedback, EOS and budget freezing on the device —
-     then pulls the token block (the one host sync of the horizon) and
-     emits, retires and records.
+     whose token block is harvested (emit, retire, record) when the
+     host copy started at dispatch has landed.
 
 Horizons are quantized to power-of-two buckets and shrink when the
 largest remaining budget, the tightest deadline or pool pressure make a
@@ -22,16 +22,30 @@ reserved before the dispatch.  When the pool runs dry the youngest
 running request is preempted (recompute: its pages recycle and it
 re-queues at the head with its emitted tokens folded into the prompt).
 
+**Overlap** (``overlap=True``, the default, as in the JAX package).  One
+horizon stays in flight: when membership is provably frozen (nothing
+waiting, nothing prefilling, no cancel or deadline live, some budget
+left, the next horizon's pages free without eviction), ``step()``
+dispatches horizon k+1 straight off horizon k's device carries (token,
+active, lengths, emitted), then harvests k while the device runs k+1.
+Any other case takes the barrier path: drain what is in flight, apply
+the host's authoritative state, dispatch fresh.  A request closed while
+a chained horizon still runs its slot (a failing token callback, a
+cancel or a deadline found at harvest) leaves at once, but its pages are
+released only when that horizon is harvested: the device may still be
+writing them.  ``overlap=False`` harvests each horizon in the step that
+dispatched it.
+
 Failure policy: an error attributable to one request (its prefill, its
 token callback) fails that request only; load the system cannot serve
 is shed (state ``shed``), distinct from errors; ``req.cancel()`` is
-honored at the next step boundary; terminal requests move to a bounded
-``completed`` history.
+honored at the next horizon boundary; terminal requests move to a
+bounded ``completed`` history.
 
 Not in this port yet (each raises ``NotImplementedError`` naming its
 ROADMAP.md item when asked for): prefix cache, speculative decoding,
-sampling/grammar policies, overlapped horizons, tenancy, tracing,
-memory telemetry, handoff, drain and the online tuner.
+sampling/grammar policies, tenancy, tracing, memory telemetry, handoff,
+drain and the online tuner.
 """
 
 import time
@@ -49,6 +63,7 @@ from deepspeed_tpu_torch.serving.page_manager import (PagedKVManager,
 WAITING, PREFILL, RUNNING, FINISHED = "waiting", "prefill", "running", \
     "finished"
 CANCELLED, FAILED, SHED = "cancelled", "failed", "shed"
+TERMINAL = frozenset((FINISHED, CANCELLED, FAILED, SHED))
 
 # JAX-scheduler options the port does not run yet -> ROADMAP.md item; an
 # option passed with an "off" value (None, False, 0, "off") is accepted
@@ -57,7 +72,6 @@ _UNPORTED = {
     "prefix_cache_pages": "Queue A4 (prefix cache with copy_page)",
     "spec_decode": "Queue A3 (speculative decoding)",
     "spec_drafter": "Queue A3 (speculative decoding)",
-    "overlap": "Queue A5 (overlap and CUDA-graph horizons)",
     "sampling": "Queue A6 (sampling and grammar policies)",
     "seed": "Queue A6 (sampling and grammar policies)",
     "grammar": "Queue A6 (sampling and grammar policies)",
@@ -147,8 +161,8 @@ class ServingScheduler:
                  max_pages_per_slot=None, prefill_chunk=16, max_queue=256,
                  do_sample=False, temperature=1.0,
                  completed_history=4096, decode_horizon_steps=8,
-                 overlap=False, kv_dtype=None, **options):
-        _reject_unported("ServingScheduler", dict(options, overlap=overlap))
+                 overlap=True, kv_dtype=None, **options):
+        _reject_unported("ServingScheduler", options)
         check_greedy(do_sample, temperature)
         if page_size is None:
             page_size = default_page_size()
@@ -179,6 +193,11 @@ class ServingScheduler:
         self._tok_window = deque(maxlen=32)   # per-token wall time
         self._eos_ids = np.full(num_slots, -1, np.int32)
         self._wall_s = None
+        self.overlap = bool(overlap)
+        self._inflight = deque()     # dispatched horizons, FIFO, depth <= 2
+        self._zombies = set()        # slots closed host-side while a
+                                     # chained horizon still runs them
+        self._chain_budgets = None   # budgets baseline of the live chain
         # power-of-two horizon buckets up to the max
         self.decode_horizon_steps = max(1, int(decode_horizon_steps))
         buckets, b = {1}, 1
@@ -331,13 +350,41 @@ class ServingScheduler:
 
     # -------------------------------------------------------------- step
     def step(self):
-        """One scheduler iteration; returns True if any work remains."""
+        """One scheduler iteration; returns True if any work remains.
+
+        With a horizon in flight and ``overlap`` on, the next horizon is
+        chained first when membership is frozen (:meth:`_try_chain`),
+        then the oldest one is harvested.  Otherwise this is a barrier
+        step: everything in flight is harvested, then the boundary work
+        (sweep, admit, prefill) runs on authoritative host state and one
+        fresh horizon is dispatched."""
         self.step_idx += 1
         t_step = time.monotonic()
-        self._sweep(t_step)
-        self._admit(t_step)
-        self._prefill()
-        t_wait, pulled = self._decode()
+        t_wait, pulled = 0.0, 0
+        chained = False
+        if self._inflight:
+            if self.overlap:
+                chained = self._try_chain()
+            w, n = self._harvest()
+            t_wait += w
+            pulled += n
+        if not chained:
+            # barrier: membership may change below, so nothing may stay
+            # in flight (its page-table snapshot would go stale and an
+            # eviction could hand its pages to another slot)
+            while self._inflight:
+                w, n = self._harvest()
+                t_wait += w
+                pulled += n
+            now = time.monotonic()
+            self._sweep(now)
+            self._admit(now)
+            self._prefill()
+            self._dispatch()
+            if not self.overlap and self._inflight:
+                w, n = self._harvest()
+                t_wait += w
+                pulled += n
         dt = time.monotonic() - t_step
         self._step_window.append(dt)
         if pulled:
@@ -347,11 +394,11 @@ class ServingScheduler:
             queue_depth=len(self.waiting),
             page_utilization=self.kv.utilization(),
             device_wait_s=t_wait, host_s=max(0.0, dt - t_wait))
-        return bool(self.waiting) or n_running > 0
+        return bool(self.waiting) or n_running > 0 or bool(self._inflight)
 
     def _admit(self, now):
         for slot in range(self.num_slots):
-            if self.slot_req[slot] is not None:
+            if self.slot_req[slot] is not None or slot in self._zombies:
                 continue
             req = None
             while self.waiting:
@@ -475,51 +522,138 @@ class ServingScheduler:
         return horizon, [s for s in kept if self.slot_req[s] is not None
                          and self.slot_req[s].state == RUNNING]
 
-    def _decode(self):
-        """Reserve pages, run one fused horizon over every running slot,
-        then harvest it.  The batched dispatch is shared work: an error
-        there is not one request's and propagates.  Returns
-        (device_wait_s, tokens delivered)."""
+    def _dispatch(self):
+        """Reserve pages and dispatch one fused horizon over every running
+        slot.  The batched dispatch is shared work: an error there is not
+        one request's and propagates."""
         running = [s for s in range(self.num_slots)
                    if self.slot_req[s] is not None and
                    self.slot_req[s].state == RUNNING]
         if not running:
-            return 0.0, 0
+            return
         horizon, running = self._reserve(
             running, self._pick_horizon(running, time.monotonic()))
         if not running:
-            return 0.0, 0
+            return
         active = np.zeros(self.num_slots, bool)
         active[running] = True
         budgets = np.zeros(self.num_slots, np.int32)
         for s in running:
             budgets[s] = self.slot_req[s].remaining_new
-        toks, valid, _, _, _, _, self.pools = self.engine.decode_multi(
+        # budgets baseline of any chained continuation: the device's
+        # `emitted` carry counts from THIS dispatch
+        self._chain_budgets = budgets
+        out = self.engine.decode_multi(
             self.last_tok, active, self.kv.table, self.lengths, self.pools,
             horizon=horizon, budgets=budgets, eos_ids=self._eos_ids)
-        return self._harvest(running, horizon, toks, valid)
+        self._commit_dispatch(out, running, horizon,
+                              {s: self.slot_req[s] for s in running})
 
-    def _harvest(self, running, horizon, toks, valid):
-        """Pull the horizon's token block (the host sync) and run the
-        bookkeeping: emit, retire, honor cancellations and deadlines."""
+    def _commit_dispatch(self, out, running, horizon, reqs):
+        toks, valid, tok_end, active_end, lengths_end, emitted_end, \
+            self.pools = out
+        self._inflight.append({
+            "slots": list(running), "reqs": reqs, "horizon": horizon,
+            # per-slot bound on this horizon's length advance: it sizes
+            # the NEXT chained reservation (the real advance is known
+            # only at harvest)
+            "max_advance": {s: int(min(horizon, reqs[s].remaining_new))
+                            for s in running},
+            # the host copy starts now, so the harvest one horizon later
+            # rarely waits for it
+            "host": self.engine.copy_to_host_async(toks, valid),
+            "tok_end": tok_end, "active_end": active_end,
+            "lengths_end": lengths_end, "emitted_end": emitted_end,
+            "release_after": set()})
+
+    def _try_chain(self):
+        """Dispatch the next horizon straight off the in-flight horizon's
+        device carries, with no host round trip, when membership is
+        provably frozen: nothing waiting or prefilling, no cancel or
+        deadline live, some budget left after the in-flight horizon, and
+        the next horizon's worst-case page growth fits in FREE pages.  A
+        chained dispatch never evicts: the device may still be writing a
+        victim's pages.  Returns True when it dispatched."""
+        prev = self._inflight[-1]
+        if self.waiting:
+            return False
+        live = [r for r in self.slot_req if r is not None]
+        if any(r.state == PREFILL for r in live):
+            return False
+        if any(r.cancelled or r.deadline is not None for r in live):
+            return False
+        cont = [s for s in prev["slots"]
+                if self.slot_req[s] is prev["reqs"][s] and
+                prev["reqs"][s].state == RUNNING and
+                s not in self._zombies]
+        if not cont:
+            return False
+        if all(prev["reqs"][s].remaining_new - prev["max_advance"][s] <= 0
+               for s in cont):
+            # the in-flight horizon exhausts every budget: a chained one
+            # would run over frozen slots only
+            return False
+        # remaining_new is an upper bound here (the in-flight tokens are
+        # not appended yet): horizon sizing and the page reservation only
+        # over-provision
+        horizon = self._bucket_floor(
+            min(self.decode_horizon_steps,
+                max(prev["reqs"][s].remaining_new for s in cont)))
+        targets, need = {}, 0
+        for s in cont:
+            req = prev["reqs"][s]
+            cap = len(req.orig_prompt) + req.max_new_tokens
+            targets[s] = min(int(self.lengths[s]) + prev["max_advance"][s]
+                             + horizon, cap)
+            need += self.kv.pages_needed(s, targets[s])
+        if need > self.kv.pool.free_pages:
+            return False
+        for s in cont:
+            if not self.kv.ensure_capacity(s, targets[s]):
+                return False
+        keep = None
+        if self._zombies:
+            # freeze slots closed host-side while the in-flight horizon
+            # still had them active
+            keep = np.ones(self.num_slots, bool)
+            keep[list(self._zombies)] = False
+        out = self.engine.decode_multi(
+            prev["tok_end"], prev["active_end"], self.kv.table,
+            prev["lengths_end"], self.pools, horizon=horizon,
+            budgets=self._chain_budgets, eos_ids=self._eos_ids,
+            emitted=prev["emitted_end"], keep=keep)
+        self._commit_dispatch(out, cont, horizon,
+                              {s: prev["reqs"][s] for s in cont})
+        return True
+
+    def _harvest(self):
+        """Pull the oldest in-flight horizon's token block and run the
+        bookkeeping: emit, retire, honor cancellations, deadlines and
+        callback failures found at this boundary, and release the pages
+        parked on this horizon.  Returns (device_wait_s, tokens
+        delivered)."""
+        rec = self._inflight.popleft()
         t0 = time.monotonic()
-        toks = toks.cpu().numpy()
-        valid = valid.cpu().numpy()
+        toks, valid = rec["host"].wait()
         wait = time.monotonic() - t0
         now = time.monotonic()
         pulled = 0
-        for slot in running:
-            req = self.slot_req[slot]
+        for slot in rec["slots"]:
+            req = rec["reqs"][slot]
+            if req.state in TERMINAL or self.slot_req[slot] is not req:
+                continue       # closed at an earlier boundary
             if req.cancelled:
-                self._close_slot(slot, CANCELLED, "cancelled")
+                # tokens past the cancel are dropped
+                self._close_slot_or_defer(slot, CANCELLED, "cancelled")
                 continue
             if req.past_deadline(now):
-                self._close_slot(slot, SHED, "deadline expired mid-flight")
+                self._close_slot_or_defer(slot, SHED,
+                                          "deadline expired mid-flight")
                 continue
             n = int(valid[slot].sum())
             if n and req.t_last is not None:
                 self.metrics.record_tbt(now - req.t_last)
-            for i in range(horizon):
+            for i in range(rec["horizon"]):
                 if not valid[slot, i]:
                     continue
                 tok = int(toks[slot, i])
@@ -527,18 +661,38 @@ class ServingScheduler:
                     self._emit(req, tok)
                     pulled += 1
                 except Exception as e:  # per-request callback fault
-                    self._close_slot(slot, FAILED,
-                                     f"{type(e).__name__}: {e}")
+                    self._close_slot_or_defer(
+                        slot, FAILED, f"{type(e).__name__}: {e}")
                     break
                 if req._finished_by(tok):
+                    # the device froze the slot at this same token, so a
+                    # chained horizon only reads its pages: release now
                     self._retire(slot)
                     break
             if self.slot_req[slot] is req and req.state == RUNNING:
                 self.lengths[slot] += n
                 if n:
                     self.last_tok[slot] = int(toks[slot][valid[slot]][-1])
-        self.metrics.record_horizon(horizon)
+        for slot in rec["release_after"]:
+            self.kv.release_slot(slot)
+            self.lengths[slot] = 0
+            self._zombies.discard(slot)
+        self.metrics.record_horizon(rec["horizon"], pulled, wait)
         return wait, pulled
+
+    def _close_slot_or_defer(self, slot, state, reason):
+        """Terminal removal found at a horizon boundary.  While a chained
+        horizon still runs this slot the device may be writing its pages:
+        close the request now (state, metrics, history) and hold the
+        pages until that horizon is harvested."""
+        if not self._inflight:
+            self._close_slot(slot, state, reason)
+            return
+        req = self.slot_req[slot]
+        self.slot_req[slot] = None
+        self._finalize(req, state, reason)
+        self._zombies.add(slot)
+        self._inflight[-1]["release_after"].add(slot)
 
     def run(self, max_steps=100000):
         """Drive step() until idle; returns {rid: generated tokens} for

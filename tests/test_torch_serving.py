@@ -174,7 +174,7 @@ def test_cancel_backpressure_and_oversize(engines):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(prefix_cache=True), dict(spec_decode="ngram"), dict(overlap=True),
+    dict(prefix_cache=True), dict(spec_decode="ngram"),
     dict(tenancy=object()), dict(do_sample=True, temperature=0.7)])
 def test_unported_scheduler_options_raise(engines, kwargs):
     _, teng = engines
