@@ -72,6 +72,21 @@ Phases, each of which must pass (any failure exits nonzero):
      request's greedy tokens must equal its own generate() tokens, at
      least one horizon must be chained, and every serve phase fails when
      a scheduler's captures exceed its horizon buckets;
+  6e. speculative decoding, fp32, on phase 5's engine: four prompts of
+     one token repeated (over which even random weights loop, so the
+     n-gram drafter hits), then phase 5's requests, served (a) with spec_decode="ngram", spec_k=8,
+     twice on one scheduler, (b) with a DraftModelDrafter over a second
+     fp32 engine of the same module (self-draft: nearly every draft
+     accepted), (c) with a DraftModelDrafter over a 2-layer model at
+     Llama-2-7B width with its own seeded weights (most drafts rejected,
+     so rollbacks cross page boundaries); every request must equal its
+     own generate() tokens (a mismatch prints the top-2 logit margin at
+     the first divergent token), each run must dispatch verify rounds
+     and contain no drafter fault (spec_degraded 0), (a) and (b) must
+     accept drafts, every page of the target and the draft pools must
+     come back, and verify captures must stay within the spec-K buckets
+     and be 0 in (a)'s second run; verify ms per round (CUDA events) and
+     the acceptance are printed;
   6. serve phase, bf16: the same requests on the eager twin
      (enable_cuda_graph=False, overlap=False), then twice on one graph
      scheduler: the first run captures, the second is the steady one;
@@ -79,13 +94,18 @@ Phases, each of which must pass (any failure exits nonzero):
      captures and their seconds, the chained horizons (at least one),
      the token agreement of the graph run with the eager twin and with
      fp32 are printed (the step-time breakdown is
-     deepspeed_tpu_torch/profiling/decode_profile.py);
+     deepspeed_tpu_torch/profiling/decode_profile.py); then the same
+     requests and the motif prompts with spec_decode="ngram" on the
+     graph engine, twice, against the same requests without spec:
+     agreement, tokens/s, acceptance and verify ms per round printed,
+     not asserted (a verify's multi-row GEMMs and plain attention round
+     differently from the decode kernels in bf16);
   6b. serve phase, the main quantized configuration: dtype="int8"
      (int8 weights, group 64, bf16 compute) with kv_cache_dtype="int8",
      the same requests, the resident module quantized in place, run as
      phase 6 runs them (eager twin, then one graph scheduler twice);
      tokens/s, step and first-token times; the two graph runs must give
-     identical tokens;
+     identical tokens; the spec run of phase 6 follows on this engine;
      summary()'s kv_pool_bytes_total must equal the leaves' bytes and
      (num_pages + 1) x kv_page_bytes; on the live pools after the run
      the quantized paged kernel must equal its plain version; agreement
@@ -114,8 +134,8 @@ Phases, each of which must pass (any failure exits nonzero):
      deepspeed_tpu_torch/profiling/train_profile.py);
   9. the launch count of every kernel over its path, CUDA-graph replays
      included (decode kernels over
-     phases 5-6, the quantized paged kernel and int8_matmul_fwd over
-     phases 6b-6c, the grouped instantiations over 6d, flash kernels
+     phases 5-6e, the quantized paged kernel and int8_matmul_fwd over
+     phases 6b-6c (int8_matmul_fwd also in 6b's verify rounds), the grouped instantiations over 6d, flash kernels
      over phase 8, block-sparse kernels over phase 4c; each must be > 0).
 
 Each line of output is one JSON object; the last is
@@ -1040,6 +1060,178 @@ def graph_and_eager(torch, engine, eager, prompts, max_new, sched_kwargs):
     return got, first, got_e, out, sched
 
 
+# ------------------------------------------------- speculative decoding
+
+
+def motif_requests(seed, vocab):
+    """Four prompts of one random token repeated 128 times, to be
+    submitted first, so they fill the 4 slots together.  Every position
+    of such a context holds the same values, so even a model with random
+    weights emits runs of one token, loops that prompt lookup drafts; on
+    random text a random model does not repeat itself, and prompt lookup
+    finds nothing to propose.  A round needs proposals from half the
+    running slots, which random requests beside them would not give."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 100)
+    return [np.full(128, t, np.int32)
+            for t in rng.integers(0, vocab, 4)], [24, 28, 24, 28]
+
+
+def generated(engine, prompts, max_new):
+    return [[int(t) for t in engine.generate(p[None], max_new_tokens=m)[
+        0, len(p):]] for p, m in zip(prompts, max_new)]
+
+
+def check_exact(engine, label, prompts, got, want):
+    """Fails unless every stream equals its generate() tokens, after
+    printing each mismatch with the top-2 logit margin of a full forward
+    at its first divergent token (a near-tie reads small)."""
+    import numpy as np
+    exact = [g == w for g, w in zip(got, want)]
+    if all(exact):
+        return exact
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next((t for t, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        ids = np.concatenate([prompts[i], np.asarray(w[:j], np.int32)])
+        top = engine.forward(ids[None])[0, -1].float().topk(2).values
+        emit({"mismatch": i, "phase": label, "first_divergence": j,
+              "top2_logit_margin": float(top[0] - top[1]),
+              "serve": g, "generate": w})
+    fail(f"{label}: serving is not token-exact against generate()")
+
+
+def spec_serve(torch, engine, prompts, max_new, sched_kwargs, drafter=None,
+               runs=1):
+    """``runs`` runs of the requests on ONE spec scheduler (n-gram, or
+    ``drafter``; spec_k 8).  Fails when a run leaves a request unfinished
+    or a page allocated (target pool and draft pool), contains a drafter
+    fault (spec_degraded: a kernel error inside a drafter must not hide
+    there), or captures more verify graphs than the spec-K buckets (a
+    later run: any).  Returns (tokens of each run, the numbers of each
+    run, the scheduler)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+    kw = dict(spec_decode="ngram") if drafter is None else \
+        dict(spec_drafter=drafter)
+    sched = ServingScheduler(engine, spec_k=8, **kw, **sched_kwargs)
+    events = []
+    verify = engine.verify_multi
+
+    def timed(*args, **kwargs):
+        # each round's device time, between CUDA events on its stream
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = verify(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+    engine.verify_multi = timed
+    tokens, numbers = [], []
+    try:
+        for run in range(runs):
+            c0 = engine.serving_verify_capture_count()
+            s0 = engine.serving_verify_capture_seconds()
+            sched.metrics = ServingMetrics()
+            events.clear()
+            steps = sched.step_idx
+            got, wall = run_mix(torch, sched, prompts, max_new)
+            s = sched.metrics.summary(wall)
+            ms = [a.elapsed_time(b) for a, b in events]
+            captures = engine.serving_verify_capture_count() - c0
+            numbers.append({
+                "serve_s": round(wall, 3), "tokens": s["tokens_emitted"],
+                "tokens_per_s": s["tokens_emitted"] / wall,
+                "steps": sched.step_idx - steps,
+                **{k: s[k] for k in s if k.startswith("spec_")},
+                "verify_captures": captures,
+                "verify_capture_s": round(
+                    engine.serving_verify_capture_seconds() - s0, 3),
+                "verify_rounds": len(ms),
+                "verify_ms_per_round_mean": float(np.mean(ms)) if ms
+                else None,
+                "verify_ms_per_round_median": float(np.median(ms)) if ms
+                else None})
+            tokens.append(got)
+            bound = len(sched.spec_k_buckets) if run == 0 else 0
+            if s["spec_degraded"] or captures > bound:
+                fail(f"spec serve run {run}: {s['spec_degraded']} degraded "
+                     f"({list(sched.metrics.spec_degrade_log)}), "
+                     f"{captures} verify captures (bound {bound})")
+            if drafter is not None and drafter.kv.pool.pages_in_use:
+                fail(f"{drafter.kv.pool.pages_in_use} draft pages leaked")
+    finally:
+        del engine.verify_multi
+    return tokens, numbers, sched
+
+
+def serve_spec_fp32(torch, deepspeed_tpu_torch, engine, model, prompts,
+                    max_new, want, motif, motif_new, sched_kwargs, seed):
+    """Phase 6e on phase 5's fp32 engine: n-gram, self-draft and a
+    2-layer draft over the requests and the motif prompts, each
+    token-exact against generate()."""
+    from deepspeed_tpu_torch.models.llama import Llama, llama2_7b
+    from deepspeed_tpu_torch.serving import DraftModelDrafter
+    t_phase = time.monotonic()
+    prompts, max_new = motif + prompts, motif_new + max_new
+    want = generated(engine, motif, motif_new) + want
+    draft_kwargs = {k: sched_kwargs[k] for k in (
+        "num_slots", "num_pages", "page_size", "max_pages_per_slot",
+        "prefill_chunk")}
+    out = {}
+    runs, numbers, _ = spec_serve(torch, engine, prompts, max_new,
+                                  sched_kwargs, runs=2)
+    for got in runs:
+        check_exact(engine, "spec ngram", prompts, got, want)
+    out["ngram"] = {"first_run": numbers[0], "steady_run": numbers[1]}
+    self_eng = deepspeed_tpu_torch.init_inference(
+        model, dtype="float32", kv_cache_dtype="float32",
+        max_out_tokens=512)
+    small = Llama(llama2_7b(num_layers=2), device="cuda")
+    small_eng = deepspeed_tpu_torch.init_inference(
+        small, dtype="float32", kv_cache_dtype="float32",
+        max_out_tokens=512).init_params(seed + 11)
+    for name, eng in (("self_draft", self_eng), ("small_draft", small_eng)):
+        drafter = DraftModelDrafter(eng, **draft_kwargs)
+        runs, numbers, _ = spec_serve(torch, engine, prompts, max_new,
+                                      sched_kwargs, drafter=drafter)
+        check_exact(engine, f"spec {name}", prompts, runs[0], want)
+        out[name] = numbers[0]
+    emit({"phase": "serve_fp32_spec", "model": "llama2-7b",
+          "requests": len(prompts), "spec_k": 8,
+          "draft_model": "llama2-7b width, 2 layers", **out,
+          "phase_s": round(time.monotonic() - t_phase, 3)})
+    runs = (out["ngram"]["first_run"], out["ngram"]["steady_run"],
+            out["self_draft"], out["small_draft"])
+    if not (all(r["spec_dispatches"] > 0 for r in runs) and
+            out["ngram"]["first_run"]["spec_accepted_tokens"] > 0 and
+            out["self_draft"]["spec_accepted_tokens"] > 0):
+        fail("spec serve: a run dispatched no verify round, or n-gram or "
+             "self-draft accepted no draft")
+    del self_eng, small_eng, small
+    torch.cuda.empty_cache()
+
+
+def spec_against_plain(torch, engine, prompts, max_new, plain, sched_kwargs,
+                       label):
+    """The n-gram spec runs (two on one scheduler) on a graph engine
+    against the same requests without spec (``plain``: their tokens on
+    that engine): agreement, tokens/s, acceptance and verify ms printed,
+    not asserted.  Returns the numbers."""
+    runs, numbers, _ = spec_serve(torch, engine, prompts, max_new,
+                                  sched_kwargs, runs=2)
+    out = {"phase": label, "first_run": numbers[0], "steady_run": numbers[1],
+           "agreement_with_plain": agreement(runs[1], plain),
+           "runs_identical": runs[0] == runs[1]}
+    emit(out)
+    return out
+
+
 def agreement(got, want):
     """Per request, the share of positions with the same token."""
     return [sum(1 for a, b in zip(x, y) if a == b) / len(y)
@@ -1122,7 +1314,7 @@ def teacher_forced_delta(engine, seq, sched_kwargs):
 
 
 def serve_quantized(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
-                    sched_kwargs, got32, seed):
+                    motif, motif_new, sched_kwargs, got32, seed):
     """Phase 6b: dtype="int8" + kv_cache_dtype="int8" on the resident
     (bf16) module, quantized in place; then fp8 pools on the same
     engine.  Returns (tokens, launch counts of the phase)."""
@@ -1142,6 +1334,10 @@ def serve_quantized(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
     got, again, got_e, runs, sched = graph_and_eager(
         torch, engine, eager, prompts, max_new, sched_kwargs)
     del eager
+    plain_motif, _, _ = serve(torch, engine, motif, motif_new, sched_kwargs)
+    spec_against_plain(torch, engine, motif + prompts, motif_new + max_new,
+                       plain_motif + got, sched_kwargs,
+                       "serve_int8_weights_int8_kv_spec")
     s = sched.summary()
     leaves = sum(t.numel() * t.element_size()
                  for layer in sched.pools["layers"] for t in layer.values())
@@ -1518,6 +1714,11 @@ def main():
                 emit({"mismatch": i, "serve": g, "generate": w})
         fail("fp32 serving is not token-exact against generate()")
 
+    # ---- speculative decoding, fp32, while phase 5's engine lives
+    motif, motif_new = motif_requests(args.seed, model.cfg.vocab_size)
+    serve_spec_fp32(torch, deepspeed_tpu_torch, engine, model, prompts,
+                    max_new, want, motif, motif_new, sched_kwargs, args.seed)
+
     # ---- serve phase, bf16 (the same module, cast in place): the eager
     # twin, then one graph scheduler twice (the second run is steady)
     engine = deepspeed_tpu_torch.init_inference(
@@ -1530,14 +1731,17 @@ def main():
         torch, engine, eager, prompts, max_new, sched_kwargs)
     emit({"phase": "serve_bf16", **runs["graph_steady"], **runs,
           "agreement_with_fp32": agreement(got16, got32)})
+    motif16, _, _ = serve(torch, engine, motif, motif_new, sched_kwargs)
+    spec_against_plain(torch, engine, motif + prompts, motif_new + max_new,
+                       motif16 + got16, sched_kwargs, "serve_bf16_spec")
     counts = dec.launch_counts()
     del engine, eager, sched32, sched16, logits
     torch.cuda.empty_cache()
 
     # ---- quantized serve phases (6b-6d), each with its own counts
     got_q, q_counts = serve_quantized(
-        torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
-        sched_kwargs, got32, args.seed)
+        torch, deepspeed_tpu_torch, dec, model, prompts, max_new, motif,
+        motif_new, sched_kwargs, got32, args.seed)
     got_q32, q32_counts = serve_int8_fp32(
         torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
         sched_kwargs, args.seed)

@@ -12,7 +12,12 @@ dtype; ``kv_cache_dtype="int8"|"fp8"`` quantizes the paged KV pools and
 is not weight quantization.  A field the JAX
 package accepts but the port does not run yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item; any other
-unknown field raises ``ValueError``.  Nothing is accepted and ignored.
+unknown field raises ``ValueError``.  The five fields the JAX config
+accepts and no JAX code reads (``min_out_tokens`` / ``min_tokens``,
+``max_batch_size``, ``replace_method``, ``triangular_masking``,
+``return_tuple``) are accepted at the JAX defaults and refused with
+``NotImplementedError`` at any other value.  Nothing else is accepted
+and ignored.
 """
 
 from typing import Any, Optional
@@ -30,6 +35,13 @@ UNPORTED_FIELDS = {
     "checkpoint_engine": "Queue A8 (checkpoint and HF ingestion)",
     "zero": "Queue A10 (ZeRO-Inference offload)",
 }
+
+# JAX-package config fields no JAX code reads: accepted at these (the JAX)
+# defaults only
+INERT_FIELDS = {"min_out_tokens": 1, "max_batch_size": 1,
+                "replace_method": "auto", "triangular_masking": True,
+                "return_tuple": True}
+_INERT_ITEM = "Queue C3 (config fields the reference accepts and ignores)"
 
 _DTYPE_ALIASES = {"half": "float16", "fp16": "float16", "bf16": "bfloat16",
                   "float": "float32", "fp32": "float32"}
@@ -62,6 +74,11 @@ class DeepSpeedInferenceConfig(BaseModel):
     quant: QuantizationConfig = Field(default_factory=QuantizationConfig)
     kv_cache_dtype: str = "bfloat16"
     max_out_tokens: int = Field(1024, alias="max_tokens")
+    min_out_tokens: int = Field(1, alias="min_tokens")
+    max_batch_size: int = 1
+    replace_method: str = "auto"
+    triangular_masking: bool = True
+    return_tuple: bool = True
     tensor_parallel: DeepSpeedTPConfig = Field(
         default_factory=DeepSpeedTPConfig, alias="tp")
     # "auto": a CUDA tensor launches the hand-written kernel, a CPU
@@ -87,6 +104,11 @@ class DeepSpeedInferenceConfig(BaseModel):
                 raise _unported(f"inference config field {key!r}",
                                 UNPORTED_FIELDS[key])
             raise ValueError(f"unknown inference config field {key!r}")
+        for key, default in INERT_FIELDS.items():
+            if getattr(self, key) != default:
+                raise _unported(f"inference config field {key}="
+                                f"{getattr(self, key)!r} (only {default!r} "
+                                "is accepted)", _INERT_ITEM)
         if self.tensor_parallel.tp_size != 1:
             raise _unported(f"tensor_parallel.tp_size="
                             f"{self.tensor_parallel.tp_size}",

@@ -6,28 +6,31 @@ int8 quantization of every ``QDense`` when the config's ``quant`` section
 is enabled), ``generate`` over a dense KV cache bucketed to 128
 positions, the greedy contract of ``sample_from_logits``, and the slot
 primitives the paged scheduler drives — ``init_paged_cache`` (float or
-int8 / fp8 pools, per pool), ``prefill_into_slots``, ``decode_step`` and
-``decode_multi``.
+int8 / fp8 pools, per pool), ``prefill_into_slots``, ``decode_step``,
+``decode_multi`` and ``verify_multi`` (speculative verification).
 
 ``decode_multi`` is the JAX ``lax.scan`` over the horizon written as a
 Python loop whose carries (token, active mask, lengths, emitted count)
-stay on the device.  The JAX package jits it once per horizon bucket;
-here a CUDA engine captures it once per bucket as a CUDA graph (over
-static input buffers and the pools it was captured with) and replays
-it, unless the config's ``enable_cuda_graph`` is False.  A graph lives
-as long as its pools and the module's weights it was captured over: it
-goes when a pool leaf is freed, and every graph goes when a weight is
-replaced (by this engine or another over the same module).  A CPU engine
-runs the loop eagerly.  Host arrays reach the card through a ring of
-pinned buffers with non-blocking copies (:class:`_PinnedRing`), and the
-token block comes back the same way (:meth:`copy_to_host_async`), so a
+stay on the device; ``verify_multi`` is one teacher-forced forward over
+K+1 columns per slot with the greedy acceptance on the device.  The JAX
+package jits each once per horizon / spec-K bucket; here a CUDA engine
+captures each body once per bucket as a CUDA graph (over static input
+buffers and the pools it was captured with) and replays it, unless the
+config's ``enable_cuda_graph`` is False.  A graph lives as long as its
+pools and the module's weights it was captured over: it goes when a
+pool leaf is freed, and every graph goes when a weight is replaced (by
+this engine or another over the same module).  A CPU engine runs the
+bodies eagerly.  Host arrays reach the card through a ring of pinned
+buffers with non-blocking copies (:class:`_PinnedRing`), and the token
+block comes back the same way (:meth:`copy_to_host_async`), so a
 dispatch never waits for the device and an array the scheduler mutates
-after a dispatch never reaches the horizon in flight.  Prefill chunks
-run eagerly (ROADMAP.md Queue A5b).
+after a dispatch never reaches the body in flight.  Prefill chunks run
+eagerly (ROADMAP.md Queue A5b).
 
-Sampled decoding (``do_sample=True`` with a temperature) is ROADMAP.md
-Queue A6 and raises; greedy is an fp32 argmax whose ties go to the
-lowest token id (``torch.argmax`` returns the first maximal index).
+Sampled decoding (``do_sample=True`` with a temperature) and sampled
+verification are ROADMAP.md Queue A6 and raise; greedy is an fp32
+argmax whose ties go to the lowest token id (``torch.argmax`` returns
+the first maximal index).
 """
 
 import dataclasses
@@ -50,10 +53,17 @@ from deepspeed_tpu_torch.utils.logging import log_dist
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 _PINNED_RING = 8          # host staging buffers in flight, at most
+# the static inputs of each captured body, by name; every one is a
+# [slots] lane but ``drafts`` [slots, K] and ``page_table`` [slots, maxp].
+# ``keep`` is ANDed into ``active`` before the body runs
 _DECODE_DTYPES = {"tok": np.int32, "active": np.bool_, "lengths": np.int32,
                   "budgets": np.int32, "eos_ids": np.int32,
                   "emitted": np.int32, "keep": np.bool_,
                   "page_table": np.int32}
+_VERIFY_DTYPES = {"tok": np.int32, "drafts": np.int32, "widths": np.int32,
+                  "active": np.bool_, "lengths": np.int32,
+                  "budgets": np.int32, "eos_ids": np.int32,
+                  "emitted": np.int32, "page_table": np.int32}
 
 
 def check_greedy(do_sample, temperature):
@@ -147,21 +157,21 @@ class HostCopy:
         return [h.numpy() for h in self._host]
 
 
-class _HorizonGraph:
-    """``decode_multi``'s body for one (pools, horizon, slot count, page
+class _BodyGraph:
+    """A serving body — ``decode_multi``'s horizon loop or
+    ``verify_multi``'s round — for one (pools, bucket, slot count, page
     table width), captured once as a CUDA graph over static inputs: views
-    of one device buffer the pinned ring fills in a single copy.  The
-    graph replays the raw addresses of the pools and weights but holds
-    neither: the engine drops it before either is freed or replaced."""
+    of one device buffer the pinned ring fills in a single copy
+    (``shapes``: name -> (shape, numpy dtype)).  The graph replays the
+    raw addresses of the pools and weights but holds neither: the engine
+    drops it before either is freed or replaced."""
 
-    def __init__(self, engine, pools, horizon, slots, max_pages):
+    def __init__(self, engine, body, pools, shapes):
         dev = engine.device
-        zeros = [np.zeros((slots, max_pages) if n == "page_table"
-                          else slots, dt)
-                 for n, dt in _DECODE_DTYPES.items()]
+        zeros = [np.zeros(shape, dt) for shape, dt in shapes.values()]
         self.buffer, views = engine._ring.stage(zeros)
-        self.inputs = dict(zip(_DECODE_DTYPES, views))
-        body = {k: v for k, v in self.inputs.items() if k != "keep"}
+        self.inputs = dict(zip(shapes, views))
+        args = {k: v for k, v in self.inputs.items() if k != "keep"}
         # warm-up, eager on a side stream: every slot inactive, so the
         # pools see writes to the sink page only; it also builds and
         # loads the kernels and runs their first-use set-up, none of
@@ -169,15 +179,15 @@ class _HorizonGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            engine._decode_body(pools, horizon, **body)
+            body(pools, **args)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with launch_counter.recording() as self.launches, \
                 torch.cuda.graph(self.graph):
-            self.outputs = engine._decode_body(pools, horizon, **body)
+            self.outputs = body(pools, **args)
 
     def replay(self):
-        """Run the captured horizon on the current stream and copy its
+        """Run the captured body on the current stream and copy its
         outputs out of the static buffers (in stream order), so the next
         replay cannot overwrite a block not yet harvested."""
         self.graph.replay()
@@ -204,10 +214,10 @@ class InferenceEngine:
                              "a CPU engine runs the decode loop eagerly")
         self.cuda_graphs = self.device.type == "cuda" and \
             config.enable_cuda_graph is not False
-        self._graphs = {}          # pool key -> {(horizon, ...): graph}
+        self._graphs = {}          # pool key -> {(body, bucket, ...): graph}
         self._graph_weights = None  # the weights the graphs were captured over
-        self._captures = 0
-        self._capture_s = 0.0
+        self._captures = {"decode_multi": 0, "verify": 0}
+        self._capture_s = {"decode_multi": 0.0, "verify": 0.0}
         self._ring = _PinnedRing(self.device) \
             if self.device.type == "cuda" else None
         self.dtype = DTYPES[config.dtype]
@@ -517,15 +527,12 @@ class InferenceEngine:
                   else emitted,
                   "keep": np.ones(slots, bool) if keep is None else keep,
                   "page_table": page_table}
-        if self._ring is None:
-            inputs = {k: self._stage(v, _torch_dtype(_DECODE_DTYPES[k]))
-                      for k, v in values.items()}
-            graph = None
-        else:
-            graph = self._horizon_graph(pools, horizon, slots,
-                                        np.shape(page_table)[1]) \
-                if self.cuda_graphs else None
-            inputs = self._stage_decode_inputs(values, graph)
+        max_pages = np.shape(page_table)[1]
+        shapes = {k: ((slots, max_pages) if k == "page_table" else (slots,),
+                      dt) for k, dt in _DECODE_DTYPES.items()}
+        graph, inputs = self._inputs(
+            "decode_multi", (horizon, slots, max_pages), shapes, values,
+            pools, lambda p, **kw: self._decode_body(p, horizon, **kw))
         mask = inputs.pop("keep")
         if graph is not None:
             if keep is not None:     # the static buffer, in place
@@ -535,22 +542,29 @@ class InferenceEngine:
             inputs["active"] = inputs["active"] & mask
         return self._decode_body(pools, horizon, **inputs) + (pools,)
 
-    def _stage_decode_inputs(self, values, graph):
-        """Host arrays in one pinned copy (into the graph's static buffer,
-        or a fresh one), then device carries device to device, in stream
-        order after it."""
-        names = list(_DECODE_DTYPES)
-        host = [np.asarray(values[k], _DECODE_DTYPES[k])
-                if not isinstance(values[k], torch.Tensor)
-                else np.zeros(np.shape(values[k]), _DECODE_DTYPES[k])
-                for k in names]
+    def _inputs(self, kind, bucket, shapes, values, pools, body):
+        """The device inputs of one ``kind`` dispatch and the graph to
+        replay over them (None when the body runs eagerly).  A CPU engine
+        stages each array; a CUDA engine packs the host arrays into one
+        pinned copy (into the graph's static buffer, or a fresh one),
+        then copies device carries device to device, in stream order
+        after it."""
+        if self._ring is None:
+            return None, {k: self._stage(v, _torch_dtype(shapes[k][1]))
+                          for k, v in values.items()}
+        graph = self._graph(kind, bucket, shapes, pools, body) \
+            if self.cuda_graphs else None
+        names = list(shapes)
+        host = [np.zeros(shapes[k][0], shapes[k][1])
+                if isinstance(values[k], torch.Tensor)
+                else np.asarray(values[k], shapes[k][1]) for k in names]
         _, views = self._ring.stage(
             host, out=None if graph is None else graph.buffer)
         inputs = dict(zip(names, views))
         for k in names:
             if isinstance(values[k], torch.Tensor):
                 inputs[k].copy_(values[k])
-        return inputs
+        return graph, inputs
 
     def _decode_body(self, pools, horizon, *, tok, active, lengths,
                      budgets, eos_ids, emitted, page_table):
@@ -572,12 +586,94 @@ class InferenceEngine:
         return (torch.stack(out_toks, 1), torch.stack(out_valid, 1), tok,
                 active, lengths, emitted)
 
-    def _horizon_graph(self, pools, horizon, slots, max_pages):
-        """The cached graph for this bucket over these pools, captured on
-        first use.  A recast, dequantized or re-quantized weight (from
-        any engine over this module) drops every graph; a pool set's
-        graphs go when the first of its leaves is freed, before the
-        allocator can hand that address to another tensor."""
+    @torch.no_grad()
+    def verify_multi(self, toks, drafts, active, page_table, lengths, pools,
+                     *, widths, budgets, eos_ids, emitted=None):
+        """Speculative verification: score ``drafts`` [slots, K] proposed
+        tokens per slot in ONE teacher-forced forward over the paged
+        cache, accept the longest greedy-matching prefix plus the target
+        model's one bonus / correction token (``engine.py:1550-1600`` of
+        the JAX package).
+
+        ``widths[s] <= K`` is the real draft count of slot ``s`` (the
+        rest of the row is padding); pages covering positions
+        ``lengths[s] .. lengths[s] + widths[s]`` must be allocated.
+        Greedy only: acceptance replays the fp32-argmax contract of
+        ``sample_from_logits``, so the stream is token-exact against
+        ``generate()`` whatever the drafts.
+
+        Returns ``(toks_block [slots, K+1], valid [slots, K+1], tok_end,
+        active_end, lengths_end, emitted_end, accepted [slots], pools)``,
+        device tensors (int32 / bool).  The carries mean what
+        ``decode_multi``'s do: ``lengths_end`` counts emitted tokens only
+        (the host mirrors the KV rollback with
+        ``PagedKVManager.truncate_slot``; positions past it hold K/V of
+        rejected drafts, overwritten before any later read), and a slot
+        freezes at EOS or at its budget.  On a CUDA engine with graphs
+        the round replays the graph of its (pools, K, slots, table width)
+        (:meth:`serving_verify_capture_count`)."""
+        slots, k = np.shape(drafts)
+        values = {"tok": toks, "drafts": drafts, "widths": widths,
+                  "active": active, "lengths": lengths, "budgets": budgets,
+                  "eos_ids": eos_ids,
+                  "emitted": np.zeros(slots, np.int32) if emitted is None
+                  else emitted, "page_table": page_table}
+        max_pages = np.shape(page_table)[1]
+        shapes = {n: ((slots, k) if n == "drafts" else
+                      (slots, max_pages) if n == "page_table" else (slots,),
+                      dt) for n, dt in _VERIFY_DTYPES.items()}
+        graph, inputs = self._inputs("verify", (k, slots, max_pages), shapes,
+                                     values, pools, self._verify_body)
+        if graph is not None:
+            return graph.replay() + (pools,)
+        return self._verify_body(pools, **inputs) + (pools,)
+
+    def _verify_body(self, pools, *, tok, drafts, widths, active, lengths,
+                     budgets, eos_ids, emitted, page_table):
+        """One verify round (``engine.py:875-941`` of the JAX package):
+        device tensors in, the seven outputs of :meth:`verify_multi`
+        out; no host sync."""
+        slots, k = drafts.shape
+        dev = drafts.device
+        i32 = torch.int32
+        cache = dict(pools, page_table=page_table, lengths=lengths,
+                     active=active,
+                     widths=torch.where(active, widths + 1, 0).to(i32))
+        x = torch.cat([tok[:, None], drafts], dim=1).long()
+        logits, _ = self.module(x, cache=cache)
+        # the greedy contract: fp32 argmax, ties to the lowest id
+        g = _sample_tokens(logits).to(i32)                   # [slots, K+1]
+        jk = torch.arange(k, device=dev)
+        ok = (drafts == g[:, :k]) & (jk[None, :] < widths[:, None])
+        a = torch.cumprod(ok.to(i32), dim=1).sum(dim=1).to(i32)
+        bonus = torch.gather(g, 1, a[:, None].long())
+        jw = torch.arange(k + 1, device=dev)
+        drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], 1)
+        # emitted stream: accepted drafts, then the bonus token
+        out_toks = torch.where(jw[None, :] < a[:, None], drafts_pad, bonus)
+        is_eos = (out_toks == eos_ids[:, None]) & (eos_ids[:, None] >= 0)
+        has_eos = is_eos.any(dim=1)
+        n_eos = torch.where(has_eos, is_eos.to(i32).argmax(dim=1) + 1,
+                            k + 2).to(i32)
+        n = torch.minimum(torch.minimum(a + 1, n_eos),
+                          (budgets - emitted).clamp(min=0))
+        n = torch.where(active, n, 0).to(i32)
+        valid = jw[None, :] < n[:, None]
+        emitted_end = emitted + n
+        last = torch.gather(out_toks, 1,
+                            (n - 1).clamp(min=0)[:, None].long())[:, 0]
+        tok_end = torch.where(n > 0, last, tok)
+        active_end = active & ~(has_eos & (n_eos <= n)) & \
+            (emitted_end < budgets)
+        return (out_toks, valid, tok_end, active_end, lengths + n,
+                emitted_end, torch.minimum(a, n))
+
+    def _graph(self, kind, bucket, shapes, pools, body):
+        """The cached graph of ``kind`` for this bucket over these pools,
+        captured on first use.  A recast, dequantized or re-quantized
+        weight (from any engine over this module) drops every graph; a
+        pool set's graphs go when the first of its leaves is freed,
+        before the allocator can hand that address to another tensor."""
         weights = tuple((t.data_ptr(), t.dtype)
                         for m in self._weight_owners
                         for t in itertools.chain(m._parameters.values(),
@@ -593,24 +689,33 @@ class InferenceEngine:
             graphs = self._graphs[key] = {}
             for t in leaves:
                 weakref.finalize(t, self._graphs.pop, key, None)
-        shape = (horizon, slots, max_pages)
-        if shape not in graphs:
+        if (kind, bucket) not in graphs:
             t0 = time.monotonic()
-            graphs[shape] = _HorizonGraph(self, pools, horizon, slots,
-                                          max_pages)
-            self._captures += 1
-            self._capture_s += time.monotonic() - t0
-        return graphs[shape]
+            graphs[(kind, bucket)] = _BodyGraph(self, body, pools, shapes)
+            self._captures[kind] += 1
+            self._capture_s[kind] += time.monotonic() - t0
+        return graphs[(kind, bucket)]
 
     def serving_decode_multi_capture_count(self):
         """Horizon graphs captured by this engine so far (the counterpart
         of the JAX ``serving_decode_multi_compile_count``)."""
-        return self._captures
+        return self._captures["decode_multi"]
 
     def serving_decode_multi_capture_seconds(self):
         """Wall seconds this engine spent capturing horizon graphs
         (warm-up included)."""
-        return self._capture_s
+        return self._capture_s["decode_multi"]
+
+    def serving_verify_capture_count(self):
+        """Verify graphs captured by this engine so far (the counterpart
+        of the JAX ``serving_verify_compile_count``): at most one per
+        spec-K bucket per pool set."""
+        return self._captures["verify"]
+
+    def serving_verify_capture_seconds(self):
+        """Wall seconds this engine spent capturing verify graphs
+        (warm-up included)."""
+        return self._capture_s["verify"]
 
     def copy_to_host_async(self, *tensors):
         """Start copying device tensors to the host (pinned buffers,

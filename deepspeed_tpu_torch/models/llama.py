@@ -2,13 +2,13 @@
 PyTorch — counterpart of ``deepspeed_tpu/models/llama.py``.
 
 ``forward(ids, positions=None, cache=None)`` returns logits, or
-``(logits, cache)`` with a cache.  Four branches are ported: no cache
+``(logits, cache)`` with a cache.  Five branches are ported: no cache
 (full causal forward, through the flash kernels or the plain attention
 as ``cfg.attn_impl`` says), the dense cache of ``generate()``, and the paged
-cache's chunked prefill (``"slot"`` in the cache) and continuous-batch
-decode (``"active"``).  The speculative-decoding verify branch
-(``"widths"``, ROADMAP.md Queue A3), sequence-parallel prefill and LoRA
-adapters (Queue A10) wait.
+cache's chunked prefill (``"slot"`` in the cache), speculative verify
+(``"widths"``: K+1 teacher-forced columns per slot) and continuous-batch
+decode (``"active"``).  Sequence-parallel prefill and LoRA adapters
+(ROADMAP.md Queue A10) wait.
 
 Caches are dicts of tensors updated IN PLACE (the JAX model returned new
 arrays): the dense layer dict carries ``k``/``v`` buffers and a Python
@@ -142,6 +142,25 @@ class LlamaAttention(nn.Module):
                 bias = _validity_bias(max_pages * ps, positions)[:, None]
                 out = decode_attention(q.to(attn_dtype), k_slot, v_slot,
                                        bias=bias)
+            elif "widths" in cache:      # speculative verify (l == K+1)
+                # column j of slot s writes position lengths[s] + j when
+                # j < widths[s] (0 for inactive slots); the rest land in
+                # the sink, their table index clamped.  Every column then
+                # attends causally over the slot's gathered pages: K+1
+                # query rows take the plain attention, as in the JAX
+                # package (models/llama.py:167-187 there)
+                write = torch.arange(l, device=x.device)[None, :] < \
+                    cache["widths"][:, None]
+                rows = torch.arange(b, device=x.device)[:, None]
+                page_ids = torch.where(
+                    write,
+                    pt[rows, (positions // ps).clamp(max=max_pages - 1)],
+                    sink)
+                paged_write(cache, page_ids, positions % ps, k, v)
+                k_all, v_all = paged_gather(cache, pt, attn_dtype)
+                bias = _validity_bias(max_pages * ps, positions)[:, None]
+                out = decode_attention(q.to(attn_dtype), k_all, v_all,
+                                       bias=bias)
             else:                        # continuous-batch decode (l == 1)
                 pos = positions[:, 0]
                 rows = torch.arange(b, device=x.device)
@@ -201,8 +220,11 @@ class Llama(nn.Module):
     [slots, max_pages] and ``lengths`` [slots] (int32, on the device),
     plus either ``slot``/``n_valid`` (Python ints: one prefill chunk of
     one slot, ``ids`` [1, chunk]; only the boundary row's logits are
-    returned) or ``active`` [slots] bool (one decode token per slot;
-    inactive slots write to the sink and do not advance)."""
+    returned), ``widths`` [slots] int32 (speculative verify, ``ids``
+    [slots, K+1]: the columns each slot writes, 0 for an inactive slot;
+    lengths advance by them and the engine rewinds after acceptance) or
+    ``active`` [slots] bool (one decode token per slot; inactive slots
+    write to the sink and do not advance)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -224,6 +246,8 @@ class Llama(nn.Module):
                 if "slot" in cache:
                     positions = (lens[cache["slot"]] +
                                  torch.arange(l, device=dev))[None, :]
+                elif "widths" in cache:
+                    positions = lens[:, None] + torch.arange(l, device=dev)
                 else:
                     positions = lens[:, None]
             elif cache is not None:
@@ -240,7 +264,7 @@ class Llama(nn.Module):
             if paged:
                 layer_cache = dict(layer_cache,
                                    page_table=cache["page_table"])
-                for key in ("slot", "n_valid", "active"):
+                for key in ("slot", "n_valid", "active", "widths"):
                     if key in cache:
                         layer_cache[key] = cache[key]
             x, new_c = block(x, positions, layer_cache)
@@ -256,6 +280,8 @@ class Llama(nn.Module):
             if "slot" in cache:
                 lengths = lens.clone()
                 lengths[cache["slot"]] += cache["n_valid"]
+            elif "widths" in cache:
+                lengths = lens + cache["widths"].to(lens.dtype)
             else:
                 lengths = lens + cache["active"].to(lens.dtype)
             return logits, dict(cache, lengths=lengths)

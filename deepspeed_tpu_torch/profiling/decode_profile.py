@@ -3,7 +3,7 @@
     python -m deepspeed_tpu_torch.profiling.decode_profile \
         [--layers 32] [--batch 4] [--context 128] [--horizon 8] \
         [--dtype bfloat16|float32|int8] [--kv-dtype int8|fp8|...] \
-        [--graph | --eager] [--seed 0]
+        [--graph | --eager] [--verify-k 1,2,4,8] [--seed 0]
 
 Builds Llama-2-7B at full width (``--layers`` cuts depth) with seeded
 random weights, fills ``--batch`` slots of a paged pool to ``--context``
@@ -23,8 +23,12 @@ idle shares of the unprofiled step (the profiler slows the host, not
 the kernels), kernels launched per step, the weight bytes a step must
 read over the card's memory rate, and the kernels with the most device
 time, per mode, with the graph launches per step and the device time
-of one horizon between CUDA events.  Needs a CUDA device;
-it does not run anywhere else.
+of one horizon between CUDA events.  ``--verify-k`` profiles, per mode,
+a 1-step horizon and then one speculative ``verify_multi`` round per
+listed K (every slot proposing K drafts, so K+1 columns a slot) over the
+same pools, each as one "step": what a verify round costs against a
+decode step (``verify_over_step``).  Needs a CUDA device; it does not
+run anywhere else.
 """
 
 import argparse
@@ -38,25 +42,27 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 
 
-def profile_mode(engine, call, horizon):
-    """Host and device time of one horizon on ``engine`` (after a
-    warm-up horizon, which captures a graph engine's bucket)."""
+def profile_mode(engine, dispatch, horizon):
+    """Host and device time of one ``dispatch()`` on ``engine`` (a
+    horizon of ``horizon`` steps, or one verify round with ``horizon``
+    1), after a warm-up dispatch, which captures a graph engine's
+    bucket."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine.decode_multi(**call)[0].cpu()            # warm-up
+    dispatch()[0].cpu()                             # warm-up
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    engine.decode_multi(**call)[0].cpu()
+    dispatch()[0].cpu()
     wall_ms = (time.monotonic() - t0) * 1e3
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    engine.decode_multi(**call)
+    dispatch()
     end.record()
     end.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        engine.decode_multi(**call)[0].cpu()
+        dispatch()[0].cpu()
         profiled_ms = (time.monotonic() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -76,7 +82,8 @@ def profile_mode(engine, call, horizon):
         "kernel_launches_per_step": launches / horizon,
         "graph_launches_per_step": 1.0 / horizon if engine.cuda_graphs
         else 0.0,
-        "captures": engine.serving_decode_multi_capture_count(),
+        "captures": engine.serving_decode_multi_capture_count() +
+        engine.serving_verify_capture_count(),
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "ms_per_step": e.self_device_time_total / 1e3 /
                          horizon} for e in top]}
@@ -95,6 +102,9 @@ def main():
                       help="only the replayed horizon")
     mode.add_argument("--eager", action="store_true",
                       help="only the eager horizon")
+    ap.add_argument("--verify-k", default=None,
+                    help="comma-separated K: profile a 1-step horizon and "
+                    "one verify round per K")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -118,8 +128,11 @@ def main():
         else ["graph", "eager"]
     engines = {"graph": engine, "eager": deepspeed_tpu_torch.init_inference(
         model, enable_cuda_graph=False, **kw)}
+    ks = [int(k) for k in args.verify_k.split(",")] if args.verify_k \
+        else []
     ps = 16
-    maxp = -(-(args.context + args.horizon) // ps)
+    maxp = -(-(args.context + max([args.horizon] + [k + 1 for k in ks]))
+             // ps)
     pools = engine.init_paged_cache(args.batch * maxp, ps)
     table = np.arange(args.batch * maxp, dtype=np.int32).reshape(
         args.batch, maxp)
@@ -136,7 +149,28 @@ def main():
            "context": args.context, "horizon": args.horizon,
            "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
     for name in modes:
-        out[name] = profile_mode(engines[name], call, args.horizon)
+        eng = engines[name]
+        if not ks:
+            out[name] = profile_mode(
+                eng, lambda: eng.decode_multi(**call), args.horizon)
+            continue
+        one = dict(call, horizon=1,
+                   budgets=np.ones(args.batch, np.int32))
+        res = out[name] = {"horizon_1": profile_mode(
+            eng, lambda: eng.decode_multi(**one), 1)}
+        rng = np.random.default_rng(args.seed)
+        for k in ks:
+            verify = dict(
+                {n: call[n] for n in ("toks", "active", "page_table",
+                                      "lengths", "pools", "eos_ids")},
+                drafts=rng.integers(0, cfg.vocab_size, (args.batch, k))
+                .astype(np.int32),
+                widths=np.full(args.batch, k, np.int32),
+                budgets=np.full(args.batch, k + 1, np.int32))
+            r = res[f"verify_k{k}"] = profile_mode(
+                eng, lambda: eng.verify_multi(**verify), 1)
+            r["verify_over_step"] = r["event_ms_per_step"] / \
+                res["horizon_1"]["event_ms_per_step"]
     print(json.dumps(out), flush=True)
 
 

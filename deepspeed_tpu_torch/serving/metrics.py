@@ -6,10 +6,13 @@ pool gauges, and per harvested horizon the tokens delivered and the time
 the host waited on the device.  Latency samples are durations from
 ``time.monotonic()``.
 Terminal outcomes are counted distinctly (completed / failed / shed /
-cancelled).  The prefix-cache,
-speculative, tenancy and memory-telemetry counters, and the monitor
-event sink, come with their subsystems (ROADMAP.md Queue A).
+cancelled).  Speculative rounds count their draft tokens, acceptances,
+emitted tokens, rollbacks and contained drafter faults.  The
+prefix-cache, tenancy and memory-telemetry counters, and the monitor
+event sink, come with their subsystems (ROADMAP.md Queue A4, A10).
 """
+
+from collections import deque
 
 import numpy as np
 
@@ -43,6 +46,17 @@ class ServingMetrics:
         self.horizon_wait_s = 0.0     # harvest time blocked on the device
         self.device_wait_s = 0.0      # step time blocked on the device
         self.host_s = 0.0             # step time doing host bookkeeping
+        # speculative decoding (draft/verify rounds)
+        self.spec_dispatches = 0       # verify_multi rounds harvested
+        self.spec_proposed = 0         # draft tokens scored (sum widths)
+        self.spec_accepted = 0         # drafts the target's argmax matched
+        self.spec_emitted = 0          # tokens a verify round produced
+        self.spec_rollbacks = 0        # rounds that discarded written KV
+        self.spec_rollback_tokens = 0  # KV positions rolled back
+        self.spec_slot_rounds = 0      # (slot, round) pairs that proposed
+        self.spec_degraded = 0         # drafter faults contained
+        self.spec_degrade_log = deque(maxlen=64)  # (step, rid, reason)
+        self.spec_wait_s = 0.0         # harvest time blocked on verifies
 
     def record_step(self, *, queue_depth, page_utilization,
                     device_wait_s, host_s):
@@ -63,6 +77,44 @@ class ServingMetrics:
         self.horizons.append(horizon)
         self.horizon_tokens += tokens
         self.horizon_wait_s += device_wait_s
+
+    def record_spec(self, *, proposed, accepted, emitted, rollbacks,
+                    rollback_tokens, slot_rounds=0):
+        """One speculative draft/verify round was harvested: ``proposed``
+        draft tokens were scored in one dispatch, ``accepted`` matched
+        the target's argmax, ``emitted`` tokens came out (accepted
+        prefixes + one bonus token per live slot), and
+        ``rollback_tokens`` KV positions written for rejected drafts
+        were rolled back across ``rollbacks`` slots."""
+        self.spec_dispatches += 1
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        self.spec_emitted += emitted
+        self.spec_rollbacks += rollbacks
+        self.spec_rollback_tokens += rollback_tokens
+        self.spec_slot_rounds += slot_rounds
+
+    def record_spec_degrade(self, step, rid=None, reason=None):
+        """A drafter exception was contained: the request degraded to
+        normal decode.  The which / why goes into ``spec_degrade_log``
+        (bounded)."""
+        self.spec_degraded += 1
+        self.spec_degrade_log.append((step, rid, reason))
+
+    def record_spec_wait(self, device_wait_s):
+        """Host time blocked pulling a verify round's results."""
+        self.spec_wait_s += device_wait_s
+
+    def spec_acceptance_rate(self):
+        return self.spec_accepted / self.spec_proposed \
+            if self.spec_proposed else 0.0
+
+    def spec_mean_accepted(self):
+        """Mean accepted draft tokens per proposing slot per round (what sets
+        the speedup: each slot-round costs ~one shared target
+        forward and yields mean_accepted + 1 tokens)."""
+        return self.spec_accepted / self.spec_slot_rounds \
+            if self.spec_slot_rounds else 0.0
 
     def record_first_token(self, ttft_s):
         self.ttft_s.append(ttft_s)
@@ -105,8 +157,17 @@ class ServingMetrics:
             if self.page_util else 0.0,
             "queue_depth_peak": int(np.max(self.queue_depths))
             if self.queue_depths else 0,
+            "spec_dispatches": self.spec_dispatches,
+            "spec_draft_tokens": self.spec_proposed,
+            "spec_accepted_tokens": self.spec_accepted,
+            "spec_acceptance_rate": round(self.spec_acceptance_rate(), 4),
+            "spec_mean_accepted": round(self.spec_mean_accepted(), 3),
+            "spec_rollbacks": self.spec_rollbacks,
+            "spec_rollback_tokens": self.spec_rollback_tokens,
+            "spec_degraded": self.spec_degraded,
         }
         out["horizon_wait_s"] = round(self.horizon_wait_s, 6)
+        out["spec_wait_s"] = round(self.spec_wait_s, 6)
         if wall_s:
             out["tokens_per_sec"] = round(self.tokens_emitted / wall_s, 3)
             # the share of the run the host spent blocked on the device

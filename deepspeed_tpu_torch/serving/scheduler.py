@@ -36,16 +36,30 @@ released only when that horizon is harvested: the device may still be
 writing them.  ``overlap=False`` harvests each horizon in the step that
 dispatched it.
 
+**Speculative decoding** (``spec_decode="ngram"`` or ``"draft"`` with
+``spec_drafter=``, ``serving/spec_decode.py``).  A step with a drafter
+asks it for up to K tokens per running slot (K adapts per request over
+the ``spec_k`` buckets) and, when proposers are at least half the batch,
+dispatches ONE ``verify_multi`` round instead of a horizon: every slot
+writes K/V for its token and drafts, the longest greedy-matching prefix
+plus the target's bonus token is emitted, and the harvest rolls each
+slot's pages back to its emitted length (``truncate_slot``).  Under
+pool pressure the K bucket shrinks before any eviction.  Spec steps are
+barrier steps: nothing chains while a drafter is configured.  A drafter
+that raises degrades that request to plain decode (sticky); the round
+and the loop go on.
+
 Failure policy: an error attributable to one request (its prefill, its
-token callback) fails that request only; load the system cannot serve
-is shed (state ``shed``), distinct from errors; ``req.cancel()`` is
-honored at the next horizon boundary; terminal requests move to a
-bounded ``completed`` history.
+token callback, its drafter) fails that request only (a drafter's only
+degrades its speculation); load the system cannot serve is shed (state
+``shed``), distinct from errors; ``req.cancel()`` is honored at the next
+horizon boundary; terminal requests move to a bounded ``completed``
+history.
 
 Not in this port yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item when asked for): prefix cache, speculative decoding,
-sampling/grammar policies, tenancy, tracing, memory telemetry, handoff,
-drain and the online tuner.
+ROADMAP.md item when asked for): prefix cache, sampling/grammar
+policies (sampled verification too), tenancy, tracing, memory telemetry,
+the monitor, handoff, drain and the online tuner.
 """
 
 import time
@@ -59,6 +73,7 @@ from deepspeed_tpu_torch.serving.metrics import ServingMetrics
 from deepspeed_tpu_torch.serving.page_manager import (PagedKVManager,
                                                       PagePoolExhausted,
                                                       default_page_size)
+from deepspeed_tpu_torch.serving.spec_decode import NgramDrafter
 
 WAITING, PREFILL, RUNNING, FINISHED = "waiting", "prefill", "running", \
     "finished"
@@ -66,12 +81,13 @@ CANCELLED, FAILED, SHED = "cancelled", "failed", "shed"
 TERMINAL = frozenset((FINISHED, CANCELLED, FAILED, SHED))
 
 # JAX-scheduler options the port does not run yet -> ROADMAP.md item; an
-# option passed with an "off" value (None, False, 0, "off") is accepted
+# option passed with an "off" value (None, False, 0, "off", or the JAX
+# default in _OFF) is accepted
 _UNPORTED = {
     "prefix_cache": "Queue A4 (prefix cache with copy_page)",
     "prefix_cache_pages": "Queue A4 (prefix cache with copy_page)",
-    "spec_decode": "Queue A3 (speculative decoding)",
-    "spec_drafter": "Queue A3 (speculative decoding)",
+    "top_k": "Queue A6 (sampling and grammar policies)",
+    "top_p": "Queue A6 (sampling and grammar policies)",
     "sampling": "Queue A6 (sampling and grammar policies)",
     "seed": "Queue A6 (sampling and grammar policies)",
     "grammar": "Queue A6 (sampling and grammar policies)",
@@ -80,6 +96,7 @@ _UNPORTED = {
     "adapter": "Queue A10 (tenancy)",
     "seq_parallel_threshold": "Queue A10 (sequence-parallel prefill)",
     "prefill_reserve_frac": "Queue A10 (sequence-parallel prefill)",
+    "monitor": "Queue A10 (serving telemetry)",
     "tracer": "Queue A10 (serving telemetry)",
     "trace_ctx": "Queue A10 (serving telemetry)",
     "mem_telemetry": "Queue A10 (serving telemetry)",
@@ -94,13 +111,29 @@ _UNPORTED = {
     "handoff": "Queue A10 (disaggregated serving)",
     "sample_offset": "Queue A10 (disaggregated serving)",
 }
+_OFF = {"top_p": 1.0}
+
+
+def _pow2_buckets(top):
+    """Power-of-two buckets 1, 2, 4, ... capped at ``top`` (included)."""
+    buckets, b = {1}, 1
+    while b < top:
+        b = min(b * 2, top)
+        buckets.add(b)
+    return sorted(buckets)
+
+
+def _floor_bucket(buckets, n):
+    """Largest bucket <= n (the smallest, 1, when none is)."""
+    return max([b for b in buckets if b <= n], default=1)
 
 
 def _reject_unported(where, options):
     for key, value in options.items():
         if key not in _UNPORTED:
             raise TypeError(f"{where}() got an unexpected argument {key!r}")
-        if value not in (None, False, 0, "off"):
+        if value not in (None, False, 0, "off") and \
+                value != _OFF.get(key, "off"):
             raise NotImplementedError(
                 f"{where}({key}=...) is not ported to the PyTorch package "
                 f"yet: see ROADMAP.md {_UNPORTED[key]}")
@@ -137,6 +170,11 @@ class Request:
         self.t_admit = None
         self.t_first = None
         self.t_last = None
+        # speculative decoding, per request: the adaptive K (None: the
+        # scheduler's spec_k), the acceptance EWMA and the sticky degrade
+        self._spec_k = None
+        self._spec_accept = None
+        self._spec_off = False
 
     @property
     def remaining_new(self):
@@ -161,7 +199,8 @@ class ServingScheduler:
                  max_pages_per_slot=None, prefill_chunk=16, max_queue=256,
                  do_sample=False, temperature=1.0,
                  completed_history=4096, decode_horizon_steps=8,
-                 overlap=True, kv_dtype=None, **options):
+                 overlap=True, spec_decode=None, spec_k=8, spec_drafter=None,
+                 kv_dtype=None, **options):
         _reject_unported("ServingScheduler", options)
         check_greedy(do_sample, temperature)
         if page_size is None:
@@ -198,13 +237,33 @@ class ServingScheduler:
         self._zombies = set()        # slots closed host-side while a
                                      # chained horizon still runs them
         self._chain_budgets = None   # budgets baseline of the live chain
-        # power-of-two horizon buckets up to the max
         self.decode_horizon_steps = max(1, int(decode_horizon_steps))
-        buckets, b = {1}, 1
-        while b < self.decode_horizon_steps:
-            b = min(b * 2, self.decode_horizon_steps)
-            buckets.add(b)
-        self.horizon_buckets = sorted(buckets)
+        self.horizon_buckets = _pow2_buckets(self.decode_horizon_steps)
+        # speculative decoding: a drafter proposes up to K tokens per
+        # slot and ONE verify_multi round scores them (greedy only)
+        self.spec_k = max(1, int(spec_k))
+        self.spec_k_buckets = _pow2_buckets(self.spec_k)
+        self._spec = None
+        self.spec_mode = "off"
+        if spec_decode not in (None, False, "off", "ngram", "draft"):
+            # validated whether or not a drafter is passed: a typo must
+            # not slip through beside a custom drafter
+            raise ValueError(f"unknown spec_decode mode {spec_decode!r}; "
+                             "pick 'ngram', 'draft' (+spec_drafter) or "
+                             "'off'")
+        if spec_decode in ("off", False):
+            pass              # an explicit off wins over a passed drafter
+        elif spec_drafter is not None:
+            self._spec = spec_drafter
+            self.spec_mode = spec_decode or getattr(spec_drafter, "name",
+                                                    "custom")
+        elif spec_decode == "ngram":
+            self._spec = NgramDrafter()
+            self.spec_mode = "ngram"
+        elif spec_decode == "draft":
+            raise ValueError(
+                "spec_decode='draft' needs a spec_drafter="
+                "DraftModelDrafter(...) carrying the draft engine")
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt, max_new_tokens=32, eos_token_id=None,
@@ -253,7 +312,18 @@ class ServingScheduler:
         self.completed.append(req)
         self.metrics.record_terminal(state)
 
+    def _spec_release(self, slot, req):
+        """Drop any drafter state of a vacated slot (every terminal and
+        preemption path funnels through here, so a stateful drafter —
+        the draft model's private KV pages — cannot leak)."""
+        if self._spec is not None and req is not None:
+            try:
+                self._spec.on_release(slot, req)
+            except Exception:   # a broken drafter must not break retire
+                pass
+
     def _vacate(self, slot):
+        self._spec_release(slot, self.slot_req[slot])
         self.kv.release_slot(slot)
         self.slot_req[slot] = None
         self.lengths[slot] = 0
@@ -473,13 +543,6 @@ class ServingScheduler:
                 req.state = RUNNING
 
     # -------------------------------------------------- horizon decode
-    def _bucket_floor(self, h):
-        out = 1
-        for b in self.horizon_buckets:
-            if b <= h:
-                out = b
-        return out
-
     def _pick_horizon(self, running, now):
         """Largest useful horizon bucket: capped by the largest remaining
         budget and by the tightest live deadline."""
@@ -491,7 +554,7 @@ class ServingScheduler:
             per_tok = float(np.median(self._tok_window))
             if per_tok > 0:
                 h = max(1, min(h, int((min(deadlines) - now) / per_tok)))
-        return self._bucket_floor(h)
+        return _floor_bucket(self.horizon_buckets, h)
 
     def _reserve(self, running, horizon):
         """Reserve every running slot's pages for the whole horizon; under
@@ -504,7 +567,7 @@ class ServingScheduler:
                 for s in running)
             if need <= self.kv.pool.free_pages:
                 break
-            horizon = self._bucket_floor(horizon - 1)
+            horizon = _floor_bucket(self.horizon_buckets, horizon - 1)
         kept = []
         for slot in running:
             req = self.slot_req[slot]
@@ -522,14 +585,152 @@ class ServingScheduler:
         return horizon, [s for s in kept if self.slot_req[s] is not None
                          and self.slot_req[s].state == RUNNING]
 
+    # --------------------------------------------- speculative decoding
+    def _spec_bucket(self, k):
+        """Smallest spec-K bucket >= k (captures stay bounded by the
+        bucket set, like horizons)."""
+        for b in self.spec_k_buckets:
+            if b >= k:
+                return b
+        return self.spec_k_buckets[-1]
+
+    def _update_spec_k(self, req, proposed, accepted):
+        """Per-request adaptive K: an EWMA of the per-round acceptance
+        fraction; shrink a bucket when drafts mostly miss (each rejected
+        column is wasted verify work and a rolled-back KV write), grow
+        back toward ``spec_k`` when they mostly hit."""
+        if proposed <= 0:
+            return
+        rate = accepted / proposed
+        prev = req._spec_accept
+        req._spec_accept = rate if prev is None else 0.5 * prev + 0.5 * rate
+        k = self.spec_k if req._spec_k is None else req._spec_k
+        if req._spec_accept < 0.35:
+            k = max(1, k // 2)
+        elif req._spec_accept > 0.75:
+            k = min(self.spec_k, max(1, k) * 2)
+        req._spec_k = self._spec_bucket(k)
+
+    def _collect_drafts(self, running):
+        """Ask the drafter for proposals, with per-request containment:
+        an exception degrades THAT request to normal decode (sticky via
+        ``_spec_off``) without touching the loop or its peers."""
+        items = []
+        for slot in running:
+            req = self.slot_req[slot]
+            if req._spec_off:
+                continue
+            # never draft past the request's budget (the bonus token
+            # supplies the last one) or the slot's page table
+            k = min(self.spec_k if req._spec_k is None else req._spec_k,
+                    req.remaining_new - 1,
+                    self.kv.max_tokens_per_slot() - int(self.lengths[slot])
+                    - 1)
+            if k > 0:
+                items.append((slot, req, k))
+        if not items:
+            return {}
+        try:
+            drafts = self._spec.propose(items)
+        except Exception:
+            # the batch call hides WHICH request blew up: propose item
+            # by item so the offenders degrade and their peers keep
+            # their drafts
+            drafts = {}
+            for item in items:
+                try:
+                    drafts.update(self._spec.propose([item]))
+                except Exception as e:
+                    item[1]._spec_off = True
+                    self.metrics.record_spec_degrade(
+                        self.step_idx, item[1].rid,
+                        f"{type(e).__name__}: {e}")
+        out = {}
+        for s, _, _ in items:
+            # no truthiness on a proposal: a numpy array would raise
+            # here, outside the containment above
+            d = drafts.get(s)
+            out[s] = [int(t) for t in d] if d is not None and len(d) else []
+        return out
+
+    def _dispatch_spec(self, running):
+        """One draft / verify round over the running slots.  Returns True
+        when a verify was dispatched (or the round consumed the step by
+        closing slots); False falls back to the plain horizon."""
+        drafts = self._collect_drafts(running)
+        proposing = [s for s in running if drafts.get(s)]
+        # a verify round runs every non-proposing slot as a one-token
+        # decode: when proposers are a minority the plain horizon
+        # produces more.  Abandoned proposals are safe to drop (the
+        # n-gram drafter is stateless; DraftModelDrafter._sync truncates
+        # draft KV that was never verified)
+        if not proposing or 2 * len(proposing) < len(running):
+            return False
+        k = self._spec_bucket(max(len(d) for d in drafts.values()))
+        # a verify writes widths[s] + 1 positions (the rollback releases
+        # the surplus): shrink the K bucket before any eviction runs
+        while k > 1:
+            need = sum(self.kv.pages_needed(
+                s, int(self.lengths[s]) + min(len(drafts.get(s, ())), k)
+                + 1) for s in running)
+            if need <= self.kv.pool.free_pages:
+                break
+            k = _floor_bucket(self.spec_k_buckets, k - 1)
+        kept = []
+        for slot in running:
+            req = self.slot_req[slot]
+            if req is None or req.state != RUNNING:
+                continue       # evicted by an earlier slot's growth
+            w = min(len(drafts.get(slot, ())), k)
+            try:
+                if self._grow_or_evict(slot,
+                                       int(self.lengths[slot]) + w + 1):
+                    kept.append(slot)
+            except PagePoolExhausted as e:
+                self._close_slot(slot, SHED, f"page capacity: {e}")
+            except Exception as e:
+                self._close_slot(slot, FAILED, f"{type(e).__name__}: {e}")
+        running = [s for s in kept if self.slot_req[s] is not None and
+                   self.slot_req[s].state == RUNNING]
+        if not running:
+            return True
+        draft_arr = np.zeros((self.num_slots, k), np.int32)
+        widths = np.zeros(self.num_slots, np.int32)
+        active = np.zeros(self.num_slots, bool)
+        budgets = np.zeros(self.num_slots, np.int32)
+        for s in running:
+            d = drafts.get(s, [])[:k]
+            draft_arr[s, :len(d)] = d
+            widths[s] = len(d)
+            active[s] = True
+            budgets[s] = self.slot_req[s].remaining_new
+        self._chain_budgets = budgets
+        toks, valid, tok_end, active_end, lengths_end, emitted_end, \
+            accepted, self.pools = self.engine.verify_multi(
+                self.last_tok, draft_arr, active, self.kv.table,
+                self.lengths, self.pools, widths=widths, budgets=budgets,
+                eos_ids=self._eos_ids)
+        self._inflight.append({
+            "spec": True, "slots": list(running),
+            "reqs": {s: self.slot_req[s] for s in running},
+            "horizon": k + 1,
+            "widths": {s: int(widths[s]) for s in running},
+            "host": self.engine.copy_to_host_async(toks, valid, accepted),
+            "tok_end": tok_end, "active_end": active_end,
+            "lengths_end": lengths_end, "emitted_end": emitted_end,
+            "release_after": set()})
+        return True
+
     def _dispatch(self):
-        """Reserve pages and dispatch one fused horizon over every running
-        slot.  The batched dispatch is shared work: an error there is not
-        one request's and propagates."""
+        """Reserve pages and dispatch one speculative round or one fused
+        horizon over every running slot.  The batched dispatch is shared
+        work: an error there is not one request's and propagates."""
         running = [s for s in range(self.num_slots)
                    if self.slot_req[s] is not None and
                    self.slot_req[s].state == RUNNING]
         if not running:
+            return
+        if self._spec is not None and self._dispatch_spec(running):
             return
         horizon, running = self._reserve(
             running, self._pick_horizon(running, time.monotonic()))
@@ -575,6 +776,11 @@ class ServingScheduler:
         chained dispatch never evicts: the device may still be writing a
         victim's pages.  Returns True when it dispatched."""
         prev = self._inflight[-1]
+        if self._spec is not None or prev.get("spec"):
+            # spec rounds need the host's token history (the drafter
+            # reads out_tokens) and a host-side rollback per verify:
+            # every spec step is a barrier step by design
+            return False
         if self.waiting:
             return False
         live = [r for r in self.slot_req if r is not None]
@@ -596,7 +802,8 @@ class ServingScheduler:
         # remaining_new is an upper bound here (the in-flight tokens are
         # not appended yet): horizon sizing and the page reservation only
         # over-provision
-        horizon = self._bucket_floor(
+        horizon = _floor_bucket(
+            self.horizon_buckets,
             min(self.decode_horizon_steps,
                 max(prev["reqs"][s].remaining_new for s in cont)))
         targets, need = {}, 0
@@ -634,7 +841,7 @@ class ServingScheduler:
         delivered)."""
         rec = self._inflight.popleft()
         t0 = time.monotonic()
-        toks, valid = rec["host"].wait()
+        toks, valid, *accepted = rec["host"].wait()
         wait = time.monotonic() - t0
         now = time.monotonic()
         pulled = 0
@@ -673,12 +880,54 @@ class ServingScheduler:
                 self.lengths[slot] += n
                 if n:
                     self.last_tok[slot] = int(toks[slot][valid[slot]][-1])
+        if rec.get("spec"):
+            self._harvest_spec(rec, valid, accepted[0])
         for slot in rec["release_after"]:
             self.kv.release_slot(slot)
             self.lengths[slot] = 0
             self._zombies.discard(slot)
-        self.metrics.record_horizon(rec["horizon"], pulled, wait)
+        if rec.get("spec"):
+            self.metrics.record_spec_wait(wait)
+        else:
+            self.metrics.record_horizon(rec["horizon"], pulled, wait)
         return wait, pulled
+
+    def _harvest_spec(self, rec, valid, accepted):
+        """Spec-round epilogue: roll the KV back to the emitted boundary
+        (``truncate_slot``: pages written for rejected drafts recycle),
+        feed the drafter its acceptance outcome, adapt each request's K,
+        and record the round.  Runs after the shared emit / retire loop,
+        so ``lengths`` already counts only emitted tokens and
+        ``out_tokens`` is current."""
+        proposed = acc_total = rollbacks = rollback_tokens = 0
+        for slot in rec["slots"]:
+            req = rec["reqs"][slot]
+            w = rec["widths"][slot]
+            n = int(valid[slot].sum())
+            acc = int(accepted[slot])
+            proposed += w
+            acc_total += acc
+            discard = max(0, (w + 1) - n)
+            if discard:
+                rollbacks += 1
+                rollback_tokens += discard
+            self._update_spec_k(req, w, acc)
+            if self.slot_req[slot] is req and req.state == RUNNING:
+                # a live slot: release the pages past the emitted
+                # boundary (a retired slot's went at retire)
+                self.kv.truncate_slot(slot, int(self.lengths[slot]))
+                if self._spec is not None:
+                    try:
+                        self._spec.on_verified(slot, req, n, acc)
+                    except Exception as e:   # containment, as ever
+                        req._spec_off = True
+                        self.metrics.record_spec_degrade(
+                            self.step_idx, req.rid,
+                            f"{type(e).__name__}: {e}")
+        self.metrics.record_spec(
+            proposed=proposed, accepted=acc_total, emitted=int(valid.sum()),
+            rollbacks=rollbacks, rollback_tokens=rollback_tokens,
+            slot_rounds=sum(1 for s in rec["slots"] if rec["widths"][s] > 0))
 
     def _close_slot_or_defer(self, slot, state, reason):
         """Terminal removal found at a horizon boundary.  While a chained
@@ -689,6 +938,7 @@ class ServingScheduler:
             self._close_slot(slot, state, reason)
             return
         req = self.slot_req[slot]
+        self._spec_release(slot, req)
         self.slot_req[slot] = None
         self._finalize(req, state, reason)
         self._zombies.add(slot)
@@ -726,6 +976,7 @@ class ServingScheduler:
                        pools=self.pools),
                    kv_dtype=self.kv_dtype_name,
                    weight_dtype=self.engine.weight_dtype_name,
+                   spec_decode=self.spec_mode,
                    kv_pool_bytes_total=sum(
                        t.numel() * t.element_size()
                        for layer in self.pools["layers"]

@@ -174,13 +174,58 @@ def test_cancel_backpressure_and_oversize(engines):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(prefix_cache=True), dict(spec_decode="ngram"),
+    dict(prefix_cache=True), dict(top_k=5),
     dict(tenancy=object()), dict(do_sample=True, temperature=0.7)])
 def test_unported_scheduler_options_raise(engines, kwargs):
     _, teng = engines
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServingScheduler(teng, num_slots=1, num_pages=4, page_size=8,
                          **kwargs)
+
+
+def test_scheduler_takes_the_jax_defaults_explicitly(engines):
+    """The JAX scheduler's own defaults, passed by name, build a working
+    scheduler (ROADMAP.md Queue C2); spec_k with spec off is accepted."""
+    _, teng = engines
+    sched = ServingScheduler(teng, num_slots=2, num_pages=8, page_size=8,
+                             max_pages_per_slot=4, prefill_chunk=8,
+                             monitor=None, top_k=0, top_p=1.0, spec_k=8,
+                             spec_decode=None, spec_drafter=None)
+    prompt = np.arange(5, dtype=np.int32)
+    req = sched.submit(prompt, max_new_tokens=4)
+    want = [int(t) for t in teng.generate(prompt[None], max_new_tokens=4)[
+        0, 5:]]
+    assert sched.run()[req.rid] == want
+    assert sched.spec_mode == "off" and sched.spec_k_buckets == [1, 2, 4, 8]
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(top_k=40), "A6"), (dict(top_p=0.9), "A6"),
+    (dict(monitor=object()), "A10")])
+def test_non_default_sampling_and_monitor_options_name_their_item(
+        engines, kwargs, item):
+    _, teng = engines
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue {item}"):
+        ServingScheduler(teng, num_slots=1, num_pages=4, page_size=8,
+                         **kwargs)
+
+
+INERT = [("min_out_tokens", 1, 2), ("min_tokens", 1, 3),
+         ("max_batch_size", 1, 4), ("replace_method", "auto", "layers"),
+         ("triangular_masking", True, False), ("return_tuple", True, False)]
+
+
+@pytest.mark.parametrize("field,default,other", INERT,
+                         ids=[f[0] for f in INERT])
+def test_inert_config_fields_accept_the_jax_default(field, default, other):
+    """Fields the JAX config accepts and no JAX code reads (ROADMAP.md
+    Queue C3): the JAX default is accepted, another value raises."""
+    eng = deepspeed_tpu_torch.init_inference(Llama(llama_tiny()),
+                                             device="cpu", **{field: default})
+    assert eng._config.min_out_tokens == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue C3"):
+        deepspeed_tpu_torch.init_inference(Llama(llama_tiny()),
+                                           device="cpu", **{field: other})
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -202,6 +247,12 @@ def test_unported_request_options_raise(engines):
         teng.generate(np.zeros((1, 3), np.int32), do_sample=True)
     with pytest.raises(TypeError):
         sched.submit(np.zeros(3, np.int32), colour="blue")
+    with pytest.raises(TypeError):
+        ServingScheduler(teng, num_slots=1, num_pages=4, page_size=8,
+                         colour="blue")
+    with pytest.raises(ValueError, match="unknown inference config"):
+        deepspeed_tpu_torch.init_inference(Llama(llama_tiny()),
+                                           device="cpu", colour="blue")
 
 
 def test_page_pool_alloc_free_invariants():
