@@ -87,6 +87,28 @@ Phases, each of which must pass (any failure exits nonzero):
      come back, and verify captures must stay within the spec-K buckets
      and be 0 in (a)'s second run; verify ms per round (CUDA events) and
      the acceptance are printed;
+  6f. prefix cache and decoding policies, fp32, on phase 5's engine
+     (which must hold no policy graph yet: greedy serving captures
+     none): (a) six requests over a 96-token shared prefix, the donor
+     first, the tails ending inside its donated pages (copy-on-write)
+     or unique (full-page hits), on one prefix-cache scheduler: every
+     token equals generate(), hits > 0, copies > 0, at most one
+     copy_page graph, every page back after a full drain; (b) the same
+     over int8 pools: the streams with the cache equal those without,
+     and each copied page's four leaves equal the source bit for bit;
+     (c) phase 5's requests as a mixed batch (greedy rows, sampled rows
+     at T 0.8, top-k 50, top-p 0.95 with the three history penalties,
+     one JSON-schema row): the greedy rows equal generate(), the streams
+     are identical across two fresh schedulers, horizons 1 and 8 and a
+     20-page pool that evicts, the grammar output is valid and complete,
+     policy captures stay within each scheduler's buckets; then the
+     motif prompts beside a sampled row with spec_decode="ngram": a
+     policy verify round must carry drafts; (d) after phases 6 and 6b,
+     the mixed batch twice on one bf16 and one int8 / int8 scheduler
+     beside the same requests all greedy (tokens/s, run-to-run identity
+     and agreement printed; grammar validity checked); the launches of
+     paged_decode_fwd (a, c, bf16 d), paged_decode_quant_fwd (b, int8 d)
+     and int8_matmul_fwd (int8 d) must be > 0;
   6. serve phase, bf16: the same requests on the eager twin
      (enable_cuda_graph=False, overlap=False), then twice on one graph
      scheduler: the first run captures, the second is the steady one;
@@ -136,7 +158,8 @@ Phases, each of which must pass (any failure exits nonzero):
      included (decode kernels over
      phases 5-6e, the quantized paged kernel and int8_matmul_fwd over
      phases 6b-6c (int8_matmul_fwd also in 6b's verify rounds), the grouped instantiations over 6d, flash kernels
-     over phase 8, block-sparse kernels over phase 4c; each must be > 0).
+     over phase 8, block-sparse kernels over phase 4c; each must be > 0;
+     ``launches_6f`` counts phase 6f's).
 
 Each line of output is one JSON object; the last is
 {"ok": true, "device": {...}}.  TF32 is off for matmuls and cuDNN so
@@ -969,9 +992,10 @@ def count_chains(sched):
     return results
 
 
-def run_mix(torch, sched, prompts, max_new):
+def run_mix(torch, sched, prompts, max_new, drained=True):
     """Submit the requests to ``sched`` and run it to idle; every request
-    must finish and every page come back.  Returns (tokens, wall s)."""
+    must finish and, when ``drained``, every page come back (a prefix
+    cache keeps its pages).  Returns (tokens, wall s)."""
     reqs = [sched.submit(p, max_new_tokens=m)
             for p, m in zip(prompts, max_new)]
     torch.cuda.synchronize()
@@ -982,7 +1006,7 @@ def run_mix(torch, sched, prompts, max_new):
     for r in reqs:
         if r.state != "finished":
             fail(f"request {r.rid} ended {r.state}: {r.error}")
-    if sched.kv.pool.pages_in_use:
+    if drained and sched.kv.pool.pages_in_use:
         fail(f"{sched.kv.pool.pages_in_use} pages leaked")
     return [got[r.rid] for r in reqs], wall
 
@@ -1238,6 +1262,294 @@ def agreement(got, want):
             for x, y in zip(got, want)]
 
 
+# ------------------------------------- prefix cache and decoding policies
+
+# the mixed batch of phase 6f (c): greedy rows, sampled rows with the
+# three history penalties, and one JSON-schema row
+SAMPLED_POLICY = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95,
+                      repetition_penalty=1.1, presence_penalty=0.2,
+                      frequency_penalty=0.1)
+JSON_SCHEMA = {"json_schema": {"type": "object", "properties": {
+    "id": {"type": "integer"}, "ok": {"type": "boolean"}}}}
+
+
+def prefix_requests(seed, vocab):
+    """A 96-token shared prefix (6 pages of 16) and tails: the donor's
+    40-token tail, prompts ending inside its donated pages (a partly
+    matched page: copy-on-write), the donor's whole prompt again, and
+    two unique tails (full-page hits only).  The donor goes first."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 200)
+    prefix = rng.integers(0, vocab, 96).astype(np.int32)
+    tail = rng.integers(0, vocab, 40).astype(np.int32)
+    tails = [tail, tail[:10], tail[:25], tail,
+             rng.integers(0, vocab, 7).astype(np.int32),
+             rng.integers(0, vocab, 30).astype(np.int32)]
+    return [np.concatenate([prefix, t]) for t in tails], \
+        [12, 10, 14, 9, 16, 11]
+
+
+def cached_serve(torch, engine, prompts, max_new, sched_kwargs, copies=None):
+    """The donor alone, then the rest, on ONE prefix-cache scheduler.
+    Returns (tokens, scheduler summary, cached pages before the drain,
+    page-copy captures); fails unless every page comes back after a full
+    drain of the cache.  ``copies`` collects, per ``copy_page``, whether
+    every leaf of the destination page equals the source bit for bit."""
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    sched = ServingScheduler(engine, prefix_cache=True, **sched_kwargs)
+    inner = engine.copy_page
+
+    def checked(pools, src, dst):
+        out = inner(pools, src, dst)
+        copies.append(all(torch.equal(t[dst].view(torch.uint8),
+                                      t[src].view(torch.uint8))
+                          for layer in pools["layers"]
+                          for t in layer.values()))
+        return out
+    if copies is not None:
+        engine.copy_page = checked
+    c0 = engine.serving_page_copy_capture_count()
+    try:
+        first, _ = run_mix(torch, sched, prompts[:1], max_new[:1],
+                           drained=False)
+        rest, wall = run_mix(torch, sched, prompts[1:], max_new[1:],
+                             drained=False)
+    finally:
+        if copies is not None:
+            del engine.copy_page
+    s = sched.summary()
+    cached = sched.kv.pool.pages_in_use
+    if cached != sched.prefix_cache.cached_pages:
+        fail(f"prefix cache: {cached} pages in use, "
+             f"{sched.prefix_cache.cached_pages} cached")
+    sched.prefix_cache.evict(10 ** 6)
+    if sched.kv.pool.pages_in_use:
+        fail(f"prefix cache: {sched.kv.pool.pages_in_use} pages leaked")
+    return first + rest, s, cached, \
+        engine.serving_page_copy_capture_count() - c0, wall
+
+
+def submit_policy_mix(sched, prompts, max_new, grammar=True):
+    """Request i: greedy when i % 3 == 0, else SAMPLED_POLICY with seed
+    i; the last one a JSON-schema row (sampled) when ``grammar``."""
+    reqs = []
+    for i, (p, m) in enumerate(zip(prompts, max_new)):
+        kw = dict(seed=i, sampling=None if i % 3 == 0 else SAMPLED_POLICY)
+        if grammar and i == len(prompts) - 1:
+            kw.update(grammar=JSON_SCHEMA, eos_token_id=2,
+                      sampling=SAMPLED_POLICY)
+            m = max(m, 40)
+        reqs.append(sched.submit(p, max_new_tokens=m, **kw))
+    return reqs
+
+
+def policy_serve(torch, engine, prompts, max_new, sched_kwargs, sched=None,
+                 grammar=True):
+    """The mixed batch on ``sched`` (a fresh one by default).  Fails when
+    a request does not finish, a page stays in use, or a grammar output
+    is not valid.  Returns (tokens, scheduler, wall s)."""
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    if sched is None:
+        sched = ServingScheduler(engine, **sched_kwargs)
+        sched.chains = count_chains(sched)
+    c0 = engine.serving_capture_count("decode_multi_policy")
+    reqs = submit_policy_mix(sched, prompts, max_new, grammar)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = sched.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    captures = engine.serving_capture_count("decode_multi_policy") - c0
+    if captures > len(sched.horizon_buckets):
+        fail(f"{captures} policy horizon graphs captured for one "
+             f"scheduler, over its {len(sched.horizon_buckets)} buckets")
+    for r in reqs:
+        if r.state != "finished":
+            fail(f"policy request {r.rid} ended {r.state}: {r.error}")
+        if r.grammar is not None and not (r.grammar.done and
+                                          r.grammar.accepts(r.out_tokens)):
+            fail(f"grammar output not valid: {r.out_tokens}")
+    if sched.kv.pool.pages_in_use:
+        fail(f"policy serve: {sched.kv.pool.pages_in_use} pages leaked")
+    return [got[r.rid] for r in reqs], sched, wall
+
+
+def policy_spec_rounds(torch, engine, prompts, max_new, sched_kwargs):
+    """The motif prompts (greedy: random weights loop over them, so
+    prompt lookup proposes) beside a sampled row, with
+    spec_decode="ngram": the rounds run ``verify_multi_policy``.  Returns
+    (policy verify rounds that carried drafts, numbers)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    sched = ServingScheduler(engine, spec_decode="ngram", spec_k=8,
+                             **sched_kwargs)
+    rounds = []
+    inner = engine.verify_multi_policy
+
+    def counted(*args, widths, **kw):
+        rounds.append(int(np.asarray(widths).sum()))
+        return inner(*args, widths=widths, **kw)
+    engine.verify_multi_policy = counted
+    try:
+        reqs = [sched.submit(p, max_new_tokens=m, seed=i,
+                             sampling=SAMPLED_POLICY if i == 3 else None)
+                for i, (p, m) in enumerate(zip(prompts, max_new))]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        del engine.verify_multi_policy
+    s = sched.summary()
+    if any(r.state != "finished" for r in reqs) or \
+            sched.kv.pool.pages_in_use or s["spec_degraded"]:
+        fail(f"sampled spec serve: states {[r.state for r in reqs]}, "
+             f"{sched.kv.pool.pages_in_use} pages, "
+             f"{s['spec_degraded']} degraded")
+    return sum(1 for w in rounds if w), {
+        "serve_s": round(wall, 3), "policy_verify_rounds": len(rounds),
+        **{k: s[k] for k in ("spec_dispatches", "spec_draft_tokens",
+                             "spec_accepted_tokens", "policy_dispatches")}}
+
+
+def serve_prefix_and_policy_fp32(torch, dec, engine, prompts, max_new,
+                                 want, motif, motif_new, sched_kwargs, seed):
+    """Phase 6f on phase 5's fp32 engine: (a) prefix caching, (b) the
+    same over int8 pools, (c) the mixed greedy / sampled / grammar batch
+    and sampled n-gram spec rounds.  Returns the launch counts of the
+    phase."""
+    from deepspeed_tpu_torch.ops.quant import kernels as qk
+    t_phase = time.monotonic()
+    dec_before = dec.launch_counts()
+    if engine.serving_capture_count("decode_multi_policy") or \
+            engine.serving_capture_count("verify_policy"):
+        fail("greedy-only serving (phases 5 and 6e) captured a policy graph")
+    out = {}
+    # (a) fp32 prefix caching, token-exact against generate()
+    pre, pre_new = prefix_requests(seed, engine.module.cfg.vocab_size)
+    pre_want = generated(engine, pre, pre_new)
+    got, s, cached, copy_captures, wall = cached_serve(
+        torch, engine, pre, pre_new, sched_kwargs)
+    check_exact(engine, "prefix cache fp32", pre, got, pre_want)
+    out["fp32"] = {k: s[k] for k in s if k.startswith("prefix")}
+    out["fp32"].update(serve_s=round(wall, 3), cached_pages=cached,
+                       prefill_tokens_saved=s["prefill_tokens_saved"],
+                       copy_page_captures=copy_captures)
+    if not (s["prefix_hits"] > 0 and s["prefix_cow_copies"] > 0) or \
+            copy_captures > 1:
+        fail(f"prefix cache fp32: {s['prefix_hits']} hits, "
+             f"{s['prefix_cow_copies']} copies, {copy_captures} captures")
+    # (b) int8 pools: cache on equals cache off, copies bit for bit
+    q_before = {**dec.launch_counts(), **qk.launch_counts()}
+    kv8 = dict(sched_kwargs, kv_dtype="int8")
+    copies = []
+    got8, s8, _, _, wall8 = cached_serve(torch, engine, pre, pre_new, kv8,
+                                         copies)
+    off8, _, _ = serve(torch, engine, pre, pre_new, kv8)
+    q_after = {**dec.launch_counts(), **qk.launch_counts()}
+    out["int8_pools"] = {"serve_s": round(wall8, 3),
+                         "prefix_hits": s8["prefix_hits"],
+                         "prefix_cow_copies": s8["prefix_cow_copies"],
+                         "copies_bitwise": copies,
+                         "cache_on_equals_off": got8 == off8,
+                         "agreement_with_fp32_pools": agreement(got8, got),
+                         "paged_decode_quant_fwd_launches":
+                         q_after["paged_decode_quant_fwd"] -
+                         q_before["paged_decode_quant_fwd"]}
+    if got8 != off8 or not copies or not all(copies) or \
+            out["int8_pools"]["paged_decode_quant_fwd_launches"] <= 0:
+        fail(f"prefix cache over int8 pools: {out['int8_pools']}")
+    # (c) the mixed batch: greedy rows equal generate(), sampled streams
+    # equal across two runs, horizons 1 and 8 and an evicting pool
+    runs = {}
+    for name, kw in (("h8", {}), ("h8_again", {}),
+                     ("h1", dict(decode_horizon_steps=1)),
+                     ("evict", dict(num_pages=20, max_pages_per_slot=16))):
+        got_c, sched, wall_c = policy_serve(torch, engine, prompts, max_new,
+                                            dict(sched_kwargs, **kw))
+        sc = sched.summary()
+        runs[name] = (got_c, {"serve_s": round(wall_c, 3),
+                              "tokens_per_s": sc["tokens_emitted"] / wall_c,
+                              "preemptions": sc["preemptions"],
+                              "policy_dispatches": sc["policy_dispatches"],
+                              "chained_horizons": sum(sched.chains)})
+    greedy = [i for i in range(len(prompts) - 1) if i % 3 == 0]
+    check_exact(engine, "policy mix greedy rows",
+                [prompts[i] for i in greedy],
+                [runs["h8"][0][i] for i in greedy],
+                [want[i] for i in greedy])
+    same = {name: r[0] == runs["h8"][0] for name, r in runs.items()}
+    if not all(same.values()) or not runs["evict"][1]["preemptions"]:
+        fail(f"sampled streams differ across schedules {same}, or the "
+             f"small pool evicted nothing ({runs['evict'][1]})")
+    n_rounds, spec = policy_spec_rounds(torch, engine, motif + prompts[:1],
+                                        motif_new + max_new[:1],
+                                        sched_kwargs)
+    if not n_rounds:
+        fail(f"no sampled n-gram spec round carried drafts: {spec}")
+    out["policy_mix"] = {name: r[1] for name, r in runs.items()}
+    out["policy_mix"]["streams_equal_across_schedules"] = same
+    out["policy_spec"] = spec
+    out["policy_captures"] = {
+        k: engine.serving_capture_count(k)
+        for k in ("decode_multi_policy", "verify_policy", "copy_page")}
+    counts = {k: v - dec_before[k] for k, v in dec.launch_counts().items()}
+    counts.update({k: q_after[k] - q_before[k] for k in qk.launch_counts()})
+    emit({"phase": "serve_fp32_prefix_policy", "model": "llama2-7b", **out,
+          "launches": counts, "phase_s": round(time.monotonic() - t_phase,
+                                                3)})
+    if counts["paged_decode_fwd"] <= 0 or \
+            counts["paged_decode_quant_fwd"] <= 0:
+        fail(f"phase 6f launches {counts}")
+    return counts
+
+
+def policy_beside_greedy(torch, dec, engine, prompts, max_new, sched_kwargs,
+                         label):
+    """Phase 6f (d) on a bf16 or int8 / int8 engine whose earlier serving
+    was greedy (so it must hold no policy graph yet): the mixed batch
+    twice on one scheduler beside the same requests all greedy; tokens/s,
+    run-to-run identity and agreement printed, grammar validity checked.
+    Returns the launch counts of the policy runs."""
+    from deepspeed_tpu_torch.ops.quant import kernels as qk
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+    if engine.serving_capture_count("decode_multi_policy") or \
+            engine.serving_capture_count("verify_policy"):
+        fail(f"{label}: greedy-only serving captured a policy graph")
+    before = {**dec.launch_counts(), **qk.launch_counts()}
+    sched = ServingScheduler(engine, **sched_kwargs)
+    first, _, _ = policy_serve(torch, engine, prompts, max_new,
+                               sched_kwargs, sched)
+    sched.metrics = ServingMetrics()
+    again, _, wall = policy_serve(torch, engine, prompts, max_new,
+                                  sched_kwargs, sched)
+    counts = {k: v - before[k] for k, v in
+              {**dec.launch_counts(), **qk.launch_counts()}.items()}
+    s = sched.metrics.summary(wall)
+    # the same requests all greedy, the steady (second) run likewise
+    greedy_sched = ServingScheduler(engine, **sched_kwargs)
+    run_mix(torch, greedy_sched, prompts, max_new)
+    greedy_sched.metrics = ServingMetrics()
+    greedy, wall_g = run_mix(torch, greedy_sched, prompts, max_new)
+    rows = [i for i in range(len(prompts) - 1) if i % 3 == 0]
+    emit({"phase": label, "policy_serve_s": round(wall, 3),
+          "policy_tokens_per_s": s["tokens_emitted"] / wall,
+          "greedy_serve_s": round(wall_g, 3),
+          "greedy_tokens_per_s":
+          greedy_sched.metrics.summary()["tokens_emitted"] / wall_g,
+          "policy_dispatches": s["policy_dispatches"],
+          "policy_captures": engine.serving_capture_count(
+              "decode_multi_policy"),
+          "two_runs_identical": first == again,
+          "greedy_rows_agree_with_greedy_serve": agreement(
+              [again[i] for i in rows], [greedy[i] for i in rows]),
+          "launches": counts})
+    return counts
+
+
 def live_pool_check(torch, dec, sched, dtype, heads, label, seed,
                     positions=(0, 7, 100, 231)):
     """On the pools a serving run has just written (layer 0): one paged
@@ -1338,6 +1650,12 @@ def serve_quantized(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
     spec_against_plain(torch, engine, motif + prompts, motif_new + max_new,
                        plain_motif + got, sched_kwargs,
                        "serve_int8_weights_int8_kv_spec")
+    q_policy = policy_beside_greedy(torch, dec, engine, prompts, max_new,
+                                    sched_kwargs,
+                                    "serve_int8_weights_int8_kv_policy")
+    if q_policy["paged_decode_quant_fwd"] <= 0 or \
+            q_policy["int8_matmul_fwd"] <= 0:
+        fail(f"int8 / int8 policy serve launches {q_policy}")
     s = sched.summary()
     leaves = sum(t.numel() * t.element_size()
                  for layer in sched.pools["layers"] for t in layer.values())
@@ -1415,6 +1733,7 @@ def serve_quantized(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
              f"{got8 == again8}, launches {fp8_counts}")
     for name in counts:
         counts[name] += fp8_counts[name]
+    counts["policy"] = q_policy
     return got, counts
 
 
@@ -1719,6 +2038,11 @@ def main():
     serve_spec_fp32(torch, deepspeed_tpu_torch, engine, model, prompts,
                     max_new, want, motif, motif_new, sched_kwargs, args.seed)
 
+    # ---- prefix cache and decoding policies, fp32, on the same engine
+    f_counts = serve_prefix_and_policy_fp32(
+        torch, dec, engine, prompts, max_new, want, motif, motif_new,
+        sched_kwargs, args.seed)
+
     # ---- serve phase, bf16 (the same module, cast in place): the eager
     # twin, then one graph scheduler twice (the second run is steady)
     engine = deepspeed_tpu_torch.init_inference(
@@ -1734,6 +2058,10 @@ def main():
     motif16, _, _ = serve(torch, engine, motif, motif_new, sched_kwargs)
     spec_against_plain(torch, engine, motif + prompts, motif_new + max_new,
                        motif16 + got16, sched_kwargs, "serve_bf16_spec")
+    bf16_policy = policy_beside_greedy(torch, dec, engine, prompts, max_new,
+                                       sched_kwargs, "serve_bf16_policy")
+    if bf16_policy["paged_decode_fwd"] <= 0:
+        fail(f"bf16 policy serve launches {bf16_policy}")
     counts = dec.launch_counts()
     del engine, eager, sched32, sched16, logits
     torch.cuda.empty_cache()
@@ -1783,6 +2111,11 @@ def main():
     kernels[1]["max_len_200_ms"] = \
         results[("dense_200", "bfloat16")]["kernel_ms"]
     kernels[0]["launches_group_8_serve"] = grouped_float
+    # launches in phase 6f: prefix caching and the policy bodies (fp32 and
+    # bf16); decode_fwd through generate(), the oracle
+    kernels[0]["launches_6f"] = f_counts["paged_decode_fwd"] + \
+        bf16_policy["paged_decode_fwd"]
+    kernels[1]["launches_6f"] = f_counts["decode_fwd"]
     # the quantized paged kernel: group 1 over the 7B quantized serve
     # phases, group 8 over the grouped serve; int8 pools, bf16 compute
     source = "deepspeed_tpu_torch/ops/attention/csrc/decode_attention.cu"
@@ -1803,6 +2136,8 @@ def main():
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "fp8_ms": r8["kernel_ms"]})
+    kernels[2]["launches_6f"] = f_counts["paged_decode_quant_fwd"] + \
+        q_counts["policy"]["paged_decode_quant_fwd"]
     # int8_matmul_fwd at the decode shape of the 7B serve phase (m = 4
     # slots, k = n = 4096, bf16); no single PyTorch call computes the
     # quantized function, so library_ms is null and the float layer's
@@ -1817,7 +2152,8 @@ def main():
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
-        "float_linear_ms": r["float_linear_ms"]})
+        "float_linear_ms": r["float_linear_ms"],
+        "launches_6f": q_counts["policy"]["int8_matmul_fwd"]})
     # the flash kernels at shape (a), bf16: the train phase's shape; the
     # plain and SDPA times of the backward cover the pair (dq, dk, dv)
     r = flash_results[("a", "bfloat16")]

@@ -4,10 +4,14 @@ of ``deepspeed_tpu/inference/engine.py``).
 What carries over: ``init_params`` / ``set_params`` (with weight-only
 int8 quantization of every ``QDense`` when the config's ``quant`` section
 is enabled), ``generate`` over a dense KV cache bucketed to 128
-positions, the greedy contract of ``sample_from_logits``, and the slot
-primitives the paged scheduler drives — ``init_paged_cache`` (float or
-int8 / fp8 pools, per pool), ``prefill_into_slots``, ``decode_step``,
-``decode_multi`` and ``verify_multi`` (speculative verification).
+positions, greedy or sampled (``do_sample`` / ``temperature`` /
+``top_k`` / ``top_p`` from the engine's key), ``sample_from_logits`` and
+``sample_from_logits_policy``, and the slot primitives the paged
+scheduler drives — ``init_paged_cache`` (float or int8 / fp8 pools, per
+pool), ``prefill_into_slots``, ``decode_step``, ``decode_multi`` and
+``verify_multi`` (speculative verification), their decoding-policy twins
+``decode_multi_policy`` and ``verify_multi_policy``, and ``copy_page``
+(the prefix cache's copy-on-write).
 
 ``decode_multi`` is the JAX ``lax.scan`` over the horizon written as a
 Python loop whose carries (token, active mask, lengths, emitted count)
@@ -27,10 +31,13 @@ dispatch never waits for the device and an array the scheduler mutates
 after a dispatch never reaches the body in flight.  Prefill chunks run
 eagerly (ROADMAP.md Queue A5b).
 
-Sampled decoding (``do_sample=True`` with a temperature) and sampled
-verification are ROADMAP.md Queue A6 and raise; greedy is an fp32
-argmax whose ties go to the lowest token id (``torch.argmax`` returns
-the first maximal index).
+Sampling draws from threefry keys (``serving/sampling/prng.py``), bit
+for bit ``jax.random``'s stream: the engine's key, seeded from ``seed``
+and split per ``generate`` / ``sample_from_logits`` call as the JAX
+engine splits its own, and per-request keys in the policy bodies, where
+every knob is a per-slot tensor, so param churn never captures again.
+Greedy is an fp32 argmax whose ties go to the lowest token id
+(``torch.argmax`` returns the first maximal index).
 """
 
 import dataclasses
@@ -48,6 +55,8 @@ from deepspeed_tpu_torch.ops.attention.decode import paged_kernel_decision
 from deepspeed_tpu_torch.ops.quant import kv as kvq
 from deepspeed_tpu_torch.ops.quant.quantizer import (dequantize_tree,
                                                      quantize_tree)
+from deepspeed_tpu_torch.serving.sampling import pipeline, prng
+from deepspeed_tpu_torch.serving.sampling.params import request_key
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -64,21 +73,44 @@ _VERIFY_DTYPES = {"tok": np.int32, "drafts": np.int32, "widths": np.int32,
                   "active": np.bool_, "lengths": np.int32,
                   "budgets": np.int32, "eos_ids": np.int32,
                   "emitted": np.int32, "page_table": np.int32}
+# the decoding-policy lanes the policy twins add: [slots] but the
+# threefry ``keys`` [slots, 2] (uint32 words in int64) and the
+# ``counts`` / ``mask`` tables [slots, vocab]
+_POLICY_DTYPES = {"keys": np.int64, "tok_base": np.int32,
+                  "temps": np.float32, "top_ks": np.int32,
+                  "top_ps": np.float32, "rep_pens": np.float32,
+                  "pres_pens": np.float32, "freq_pens": np.float32,
+                  "counts": np.int32, "mask": np.bool_}
+_GRAPH_KINDS = ("decode_multi", "decode_multi_policy", "verify",
+                "verify_policy", "copy_page")
 
 
-def check_greedy(do_sample, temperature):
-    """Raise for sampled decoding, which is not ported yet."""
-    if do_sample and temperature:
-        raise NotImplementedError(
-            "sampled decoding is not ported to the PyTorch package yet: "
-            "see ROADMAP.md Queue A6 (sampling and grammar policies)")
-
-
-def _sample_tokens(logits, do_sample=False, temperature=1.0):
-    """Next token from [batch, vocab] logits under THE greedy contract:
-    an argmax over the fp32 logits, ties to the lowest token id."""
-    check_greedy(do_sample, temperature)
-    return torch.argmax(logits.float(), dim=-1)
+def _sample_tokens(logits, rng=None, do_sample=False, temperature=1.0,
+                   top_k=0, top_p=1.0):
+    """Next token from [batch, vocab] logits (the JAX ``_sample_tokens``,
+    ``engine.py:53-81``).  THE greedy contract: ``do_sample=False`` or
+    ``temperature == 0`` is an argmax over the fp32 logits, ties to the
+    lowest token id, and ``rng`` is not read.  Otherwise temperature,
+    top-k and top-p truncate the fp32 logits and one categorical draw
+    per row comes from the threefry key ``rng`` ([2]: every row from one
+    stream, as JAX draws them)."""
+    logits = logits.float()
+    if not do_sample or not temperature:
+        return torch.argmax(logits, dim=-1)
+    if temperature != 1.0:
+        logits = logits / temperature
+    vocab = logits.shape[-1]
+    if top_k and top_k > 0:
+        kth = torch.sort(logits, dim=-1, descending=True).values[
+            :, min(int(top_k), vocab) - 1:min(int(top_k), vocab)]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    if top_p and top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(pipeline.softmax(sorted_logits), dim=-1)
+        cutoff_idx = (cum < top_p).sum(dim=-1).clamp(max=vocab - 1)
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx[:, None])
+        logits = torch.where(logits < cutoff, float("-inf"), logits)
+    return prng.categorical(rng, logits)
 
 
 def _torch_dtype(np_dtype):
@@ -216,8 +248,8 @@ class InferenceEngine:
             config.enable_cuda_graph is not False
         self._graphs = {}          # pool key -> {(body, bucket, ...): graph}
         self._graph_weights = None  # the weights the graphs were captured over
-        self._captures = {"decode_multi": 0, "verify": 0}
-        self._capture_s = {"decode_multi": 0.0, "verify": 0.0}
+        self._captures = dict.fromkeys(_GRAPH_KINDS, 0)
+        self._capture_s = dict.fromkeys(_GRAPH_KINDS, 0.0)
         self._ring = _PinnedRing(self.device) \
             if self.device.type == "cuda" else None
         self.dtype = DTYPES[config.dtype]
@@ -227,6 +259,10 @@ class InferenceEngine:
         # first serving dispatch
         self.kv_dtype = self._resolve_kv_dtype(config.kv_cache_dtype)
         self.seed = int(seed)
+        # the engine's threefry key (``jax.random.PRNGKey(seed)``), split
+        # per generate() / sample_from_logits() call as the JAX engine
+        # splits its own
+        self._rng = prng.as_key(request_key(self.seed))
         if config.replace_with_kernel_inject and \
                 model.cfg.attn_impl != "auto":
             # a fresh module (never the caller's, which may be live
@@ -335,28 +371,69 @@ class InferenceEngine:
     __call__ = forward
 
     # ---------------------------------------------------------- generate
-    def sample_from_logits(self, logits, do_sample=False, temperature=1.0):
-        """Greedy next token(s): a [vocab] row returns an int, a list of
-        rows or an [n, vocab] batch returns a list (one device call)."""
+    def _next_key(self):
+        """``self._rng, rng = jax.random.split(self._rng)``: a fresh key
+        on the engine's device."""
+        self._rng, rng = prng.split(self._rng)
+        return rng.to(self.device)
+
+    def _rows(self, logits):
         if isinstance(logits, (list, tuple)):
             rows = torch.stack([torch.as_tensor(r) for r in logits])
         else:
             rows = torch.as_tensor(logits)
         single = rows.ndim == 1
-        toks = _sample_tokens(rows[None] if single else rows, do_sample,
-                              temperature).tolist()
+        return (rows[None] if single else rows).to(self.device), single
+
+    def sample_from_logits(self, logits, do_sample=False, temperature=1.0,
+                           top_k=0, top_p=1.0):
+        """Next token(s) under ``_sample_tokens``: a [vocab] row returns
+        an int, a list of rows or an [n, vocab] batch returns a list (one
+        device call).  Every call splits the engine's key, as the JAX
+        engine's does; a sampled batch draws all its rows from that one
+        key, so batching changes a sampled stream (greedy is
+        unaffected)."""
+        rows, single = self._rows(logits)
+        toks = _sample_tokens(rows, self._next_key(), do_sample, temperature,
+                              top_k, top_p).tolist()
+        return toks[0] if single else toks
+
+    @torch.no_grad()
+    def sample_from_logits_policy(self, logits, keys, tok_idx, temps,
+                                  top_ks, top_ps, rep_pens, pres_pens,
+                                  freq_pens, counts, mask):
+        """Boundary sampling under the decoding policy (the JAX
+        ``engine.py:1713-1756``): ``logits`` is a list of [vocab] rows or
+        an [n, vocab] batch, every other argument per row (host arrays).
+        Row ``r`` draws from ``fold_in(keys[r], tok_idx[r])``, the
+        position-keyed stream the policy horizons use, so the first token
+        does not depend on batching, preemption or the horizon."""
+        rows, single = self._rows(logits)
+
+        def dev(x, dt):
+            return torch.as_tensor(np.asarray(x, dt), device=self.device)
+        x = pipeline.process_logits(
+            rows, dev(counts, np.int32), dev(mask, np.bool_),
+            dev(temps, np.float32), dev(top_ks, np.int32),
+            dev(top_ps, np.float32), dev(rep_pens, np.float32),
+            dev(pres_pens, np.float32), dev(freq_pens, np.float32))
+        toks = pipeline.sample_processed(
+            x, dev(np.asarray(keys, np.uint32).reshape(-1, 2), np.int64),
+            dev(tok_idx, np.int64), dev(temps, np.float32)).tolist()
         return toks[0] if single else toks
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
-                 temperature=1.0, eos_token_id=None):
-        """Greedy generation over a dense KV cache.  Returns the prompt
-        followed by the new tokens, as a numpy array [b, len]; rows that
-        emitted ``eos_token_id`` continue with it as fill.  The cache
-        length rounds up to 128 positions (``engine.py:1855-1862``); the
+                 temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None):
+        """Generation over a dense KV cache, greedy or sampled
+        (``_sample_tokens``).  Returns the prompt followed by the new
+        tokens, as a numpy array [b, len]; rows that emitted
+        ``eos_token_id`` continue with it as fill.  The cache length
+        rounds up to 128 positions (``engine.py:1855-1862``).  The keys
+        are the JAX engine's: one split for the first token, one more for
+        the rest, whose step ``i`` draws from ``fold_in(rng, i)``; the
         tokens are those of the JAX package's bucketed scan, which only
         runs extra steps past the returned ones."""
-        check_greedy(do_sample, temperature)
         ids = np.asarray(input_ids)
         if ids.ndim == 1:
             ids = ids[None]
@@ -369,6 +446,8 @@ class InferenceEngine:
                 f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds max_out_tokens={self._config.max_out_tokens}; "
                 "raise max_out_tokens in the inference config")
+        policy = dict(do_sample=do_sample, temperature=temperature,
+                      top_k=top_k, top_p=top_p)
         bucket = 128
         cache_len = min(-(-max_len // bucket) * bucket,
                         self._config.max_out_tokens)
@@ -381,14 +460,17 @@ class InferenceEngine:
                                     dtype=cache_dtype, device=self.device)
         logits, cache = self.module(
             torch.as_tensor(ids, device=self.device).long(), cache=cache)
-        tok = _sample_tokens(logits[:, -1])
+        tok = _sample_tokens(logits[:, -1], self._next_key(), **policy)
         toks = [tok]
         finished = torch.zeros(b, dtype=torch.bool, device=self.device)
         if eos_token_id is not None:
             finished |= tok == eos_token_id
-        for _ in range(max_new_tokens - 1):
+        rng = self._next_key() if max_new_tokens > 1 else None
+        for i in range(max_new_tokens - 1):
             logits, cache = self.module(tok[:, None], cache=cache)
-            nxt = _sample_tokens(logits[:, 0])
+            nxt = _sample_tokens(
+                logits[:, 0], None if not do_sample or not temperature
+                else prng.fold_in(rng, i), **policy)
             if eos_token_id is not None:
                 nxt = torch.where(finished, eos_token_id, nxt)
                 finished |= nxt == eos_token_id
@@ -486,39 +568,80 @@ class InferenceEngine:
 
     @torch.no_grad()
     def decode_step(self, toks, active, page_table, lengths, pools,
-                    do_sample=False, temperature=1.0):
+                    do_sample=False, temperature=1.0, top_k=0, top_p=1.0):
         """One decode step over ALL slots: write each active slot's token
         K/V at position lengths[slot], attend through the page table and
-        return (next tokens [slots] int32 on the device, pools)."""
+        return (next tokens [slots] int32 on the device, pools).  Tokens
+        come from ``_sample_tokens`` on a split of the engine's key."""
         cache = dict(pools, page_table=self._stage(page_table, torch.int32),
                      lengths=self._stage(lengths, torch.int32),
                      active=self._stage(active, torch.bool))
         logits, _ = self.module(self._stage(toks, torch.long)[:, None],
                                 cache=cache)
-        return _sample_tokens(logits[:, 0], do_sample,
-                              temperature).to(torch.int32), pools
+        return _sample_tokens(logits[:, 0], self._next_key(), do_sample,
+                              temperature, top_k, top_p).to(
+                                  torch.int32), pools
 
     @torch.no_grad()
     def decode_multi(self, toks, active, page_table, lengths, pools, *,
-                     horizon, budgets, eos_ids, emitted=None, keep=None,
-                     do_sample=False, temperature=1.0):
-        """``horizon`` decode steps over all slots with the feedback on the
-        device.  Returns ``(toks_block [slots, H], valid [slots, H],
-        tok_end, active_end, lengths_end, emitted_end, pools)``, all
-        device tensors.  A slot freezes after sampling ``eos_ids[slot]``
-        (-1 = none) or once its ``emitted`` count reaches
-        ``budgets[slot]``; frozen slots write no K/V (the sink takes their
-        rows), advance no length and emit ``valid=False`` rows — the JAX
-        ``decode_multi`` rules (``engine.py:829-873``).  ``keep`` (host
-        bool [slots]) is ANDed into ``active`` on the device: a chained
-        dispatch freezes the slots the host has closed since.
+                     horizon, budgets, eos_ids, emitted=None, keep=None):
+        """``horizon`` greedy decode steps over all slots with the
+        feedback on the device.  Returns ``(toks_block [slots, H], valid
+        [slots, H], tok_end, active_end, lengths_end, emitted_end,
+        pools)``, all device tensors.  A slot freezes after sampling
+        ``eos_ids[slot]`` (-1 = none) or once its ``emitted`` count
+        reaches ``budgets[slot]``; frozen slots write no K/V (the sink
+        takes their rows), advance no length and emit ``valid=False``
+        rows — the JAX ``decode_multi`` rules (``engine.py:829-873``).
+        ``keep`` (host bool [slots]) is ANDed into ``active`` on the
+        device: a chained dispatch freezes the slots the host has closed
+        since.  Sampled serving runs :meth:`decode_multi_policy`.
 
         Each input is a host array or a device tensor (a chained
         dispatch passes the previous horizon's carries).  On a CUDA
         engine with graphs the horizon replays the graph of its bucket
         (:meth:`serving_decode_multi_capture_count`); the outputs are
         fresh tensors, never the graph's static buffers."""
-        check_greedy(do_sample, temperature)
+        return self._decode(toks, active, page_table, lengths, pools,
+                            horizon, budgets, eos_ids, emitted, keep, None)
+
+    @torch.no_grad()
+    def decode_multi_policy(self, toks, active, page_table, lengths, pools,
+                            *, horizon, budgets, eos_ids, keys, tok_base,
+                            temps, top_ks, top_ps, rep_pens, pres_pens,
+                            freq_pens, counts, mask, emitted=None,
+                            keep=None):
+        """:meth:`decode_multi` under the per-slot decoding policy (the
+        JAX ``engine.py:940-985`` / ``:1619-1665``): each step runs the
+        ``serving/sampling/pipeline.py`` chain over the slot's lanes and
+        draws token ``tok_base[s] + emitted[s]`` of the slot's stream from
+        ``keys[s]`` ([slots, 2] threefry words).  ``counts`` [slots,
+        vocab] (the penalties' token counts) rides the carry, so a
+        penalty sees the tokens sampled earlier in the horizon; ``mask``
+        [slots, vocab] is the grammar mask.  Returns the decode tuple
+        with ``counts_end`` before the pools.  ``counts`` is a host array
+        at a barrier or the previous horizon's ``counts_end`` in a chain.
+        Every knob is a graph input: one graph (kind
+        ``"decode_multi_policy"``) per horizon bucket whatever the mix."""
+        policy = dict(keys=keys, tok_base=tok_base, temps=temps,
+                      top_ks=top_ks, top_ps=top_ps, rep_pens=rep_pens,
+                      pres_pens=pres_pens, freq_pens=freq_pens,
+                      counts=counts, mask=mask)
+        return self._decode(toks, active, page_table, lengths, pools,
+                            horizon, budgets, eos_ids, emitted, keep, policy)
+
+    def _shapes(self, base, slots, extra=None, policy=False):
+        """Input shapes of a body: [slots] lanes, ``page_table`` and any
+        ``extra`` (name -> shape), and the policy lanes when asked."""
+        dtypes = dict(base, **(_POLICY_DTYPES if policy else {}))
+        vocab = self.module.cfg.vocab_size
+        special = dict(keys=(slots, 2), counts=(slots, vocab),
+                       mask=(slots, vocab), **(extra or {}))
+        return {k: (special.get(k, (slots,)), dt)
+                for k, dt in dtypes.items()}
+
+    def _decode(self, toks, active, page_table, lengths, pools, horizon,
+                budgets, eos_ids, emitted, keep, policy):
         horizon = int(horizon)
         slots = len(budgets)
         values = {"tok": toks, "active": active, "lengths": lengths,
@@ -526,13 +649,15 @@ class InferenceEngine:
                   "emitted": np.zeros(slots, np.int32) if emitted is None
                   else emitted,
                   "keep": np.ones(slots, bool) if keep is None else keep,
-                  "page_table": page_table}
+                  "page_table": page_table, **(policy or {})}
         max_pages = np.shape(page_table)[1]
-        shapes = {k: ((slots, max_pages) if k == "page_table" else (slots,),
-                      dt) for k, dt in _DECODE_DTYPES.items()}
+        shapes = self._shapes(_DECODE_DTYPES, slots,
+                              {"page_table": (slots, max_pages)},
+                              policy is not None)
         graph, inputs = self._inputs(
-            "decode_multi", (horizon, slots, max_pages), shapes, values,
-            pools, lambda p, **kw: self._decode_body(p, horizon, **kw))
+            "decode_multi" if policy is None else "decode_multi_policy",
+            (horizon, slots, max_pages), shapes, values, pools,
+            lambda p, **kw: self._decode_body(p, horizon, **kw))
         mask = inputs.pop("keep")
         if graph is not None:
             if keep is not None:     # the static buffer, in place
@@ -550,8 +675,11 @@ class InferenceEngine:
         then copies device carries device to device, in stream order
         after it."""
         if self._ring is None:
-            return None, {k: self._stage(v, _torch_dtype(shapes[k][1]))
-                          for k, v in values.items()}
+            return None, {
+                k: self._stage(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v, shapes[k][1]),
+                               _torch_dtype(shapes[k][1]))
+                for k, v in values.items()}
         graph = self._graph(kind, bucket, shapes, pools, body) \
             if self.cuda_graphs else None
         names = list(shapes)
@@ -567,24 +695,45 @@ class InferenceEngine:
         return graph, inputs
 
     def _decode_body(self, pools, horizon, *, tok, active, lengths,
-                     budgets, eos_ids, emitted, page_table):
+                     budgets, eos_ids, emitted, page_table, **policy):
         """The horizon loop (the JAX scan body): device tensors in, the
-        six outputs of :meth:`decode_multi` out; no host sync."""
+        six outputs of :meth:`decode_multi` out (seven with ``counts_end``
+        under a ``policy``); no host sync."""
         out_toks, out_valid = [], []
+        counts = policy["counts"].clone() if policy else None
+        rows = torch.arange(tok.shape[0], device=tok.device)
         for _ in range(horizon):
             cache = dict(pools, page_table=page_table, lengths=lengths,
                          active=active)
             logits, cache = self.module(tok.long()[:, None], cache=cache)
-            nxt = _sample_tokens(logits[:, 0]).to(torch.int32)
+            if policy:
+                x = self._process(logits[:, 0], counts, policy)
+                nxt = pipeline.sample_processed(
+                    x, policy["keys"],
+                    policy["tok_base"].long() + emitted.long(),
+                    policy["temps"]).to(torch.int32)
+            else:
+                nxt = _sample_tokens(logits[:, 0]).to(torch.int32)
             nxt = torch.where(active, nxt, tok)
+            if policy:
+                counts.index_put_((rows, nxt.long()),
+                                  active.to(torch.int32), accumulate=True)
             emitted = emitted + active.to(torch.int32)
             out_toks.append(nxt)
             out_valid.append(active)
             lengths = cache["lengths"]
             active = active & (nxt != eos_ids) & (emitted < budgets)
             tok = nxt
-        return (torch.stack(out_toks, 1), torch.stack(out_valid, 1), tok,
-                active, lengths, emitted)
+        out = (torch.stack(out_toks, 1), torch.stack(out_valid, 1), tok,
+               active, lengths, emitted)
+        return out + (counts,) if policy else out
+
+    @staticmethod
+    def _process(logits, counts, policy):
+        return pipeline.process_logits(
+            logits, counts, policy["mask"], policy["temps"],
+            policy["top_ks"], policy["top_ps"], policy["rep_pens"],
+            policy["pres_pens"], policy["freq_pens"])
 
     @torch.no_grad()
     def verify_multi(self, toks, drafts, active, page_table, lengths, pools,
@@ -598,9 +747,10 @@ class InferenceEngine:
         ``widths[s] <= K`` is the real draft count of slot ``s`` (the
         rest of the row is padding); pages covering positions
         ``lengths[s] .. lengths[s] + widths[s]`` must be allocated.
-        Greedy only: acceptance replays the fp32-argmax contract of
+        Greedy: acceptance replays the fp32-argmax contract of
         ``sample_from_logits``, so the stream is token-exact against
-        ``generate()`` whatever the drafts.
+        ``generate()`` whatever the drafts (sampled verification is
+        :meth:`verify_multi_policy`).
 
         Returns ``(toks_block [slots, K+1], valid [slots, K+1], tok_end,
         active_end, lengths_end, emitted_end, accepted [slots], pools)``,
@@ -612,27 +762,58 @@ class InferenceEngine:
         freezes at EOS or at its budget.  On a CUDA engine with graphs
         the round replays the graph of its (pools, K, slots, table width)
         (:meth:`serving_verify_capture_count`)."""
+        return self._verify(toks, drafts, active, page_table, lengths,
+                            pools, widths, budgets, eos_ids, emitted, None)
+
+    @torch.no_grad()
+    def verify_multi_policy(self, toks, drafts, active, page_table,
+                            lengths, pools, *, widths, budgets, eos_ids,
+                            keys, tok_base, temps, top_ks, top_ps,
+                            rep_pens, pres_pens, freq_pens, counts, mask,
+                            emitted=None):
+        """Lossless speculative verification under the decoding policy
+        (the JAX ``engine.py:986-1063`` / ``:1667-1711``): the same
+        teacher-forced forward as :meth:`verify_multi`, then per column
+        ``j`` the policy chain and leftover-probability rejection
+        sampling (``pipeline.accept_or_resample``) on sub-streams of
+        ``fold_in(key, tok_base + j)``; a greedy row keeps the exact
+        argmax rule.  ``counts`` carries the accepted drafts so the
+        penalties stay causal within the round.  Returns the verify
+        tuple with ``counts_end`` before the pools; one graph (kind
+        ``"verify_policy"``) per K bucket."""
+        policy = dict(keys=keys, tok_base=tok_base, temps=temps,
+                      top_ks=top_ks, top_ps=top_ps, rep_pens=rep_pens,
+                      pres_pens=pres_pens, freq_pens=freq_pens,
+                      counts=counts, mask=mask)
+        return self._verify(toks, drafts, active, page_table, lengths,
+                            pools, widths, budgets, eos_ids, emitted, policy)
+
+    def _verify(self, toks, drafts, active, page_table, lengths, pools,
+                widths, budgets, eos_ids, emitted, policy):
         slots, k = np.shape(drafts)
         values = {"tok": toks, "drafts": drafts, "widths": widths,
                   "active": active, "lengths": lengths, "budgets": budgets,
                   "eos_ids": eos_ids,
                   "emitted": np.zeros(slots, np.int32) if emitted is None
-                  else emitted, "page_table": page_table}
+                  else emitted, "page_table": page_table, **(policy or {})}
         max_pages = np.shape(page_table)[1]
-        shapes = {n: ((slots, k) if n == "drafts" else
-                      (slots, max_pages) if n == "page_table" else (slots,),
-                      dt) for n, dt in _VERIFY_DTYPES.items()}
-        graph, inputs = self._inputs("verify", (k, slots, max_pages), shapes,
-                                     values, pools, self._verify_body)
+        shapes = self._shapes(_VERIFY_DTYPES, slots,
+                              {"drafts": (slots, k),
+                               "page_table": (slots, max_pages)},
+                              policy is not None)
+        graph, inputs = self._inputs(
+            "verify" if policy is None else "verify_policy",
+            (k, slots, max_pages), shapes, values, pools, self._verify_body)
         if graph is not None:
             return graph.replay() + (pools,)
         return self._verify_body(pools, **inputs) + (pools,)
 
     def _verify_body(self, pools, *, tok, drafts, widths, active, lengths,
-                     budgets, eos_ids, emitted, page_table):
-        """One verify round (``engine.py:875-941`` of the JAX package):
-        device tensors in, the seven outputs of :meth:`verify_multi`
-        out; no host sync."""
+                     budgets, eos_ids, emitted, page_table, **policy):
+        """One verify round (``engine.py:875-941`` of the JAX package,
+        ``:986-1063`` under a ``policy``): device tensors in, the seven
+        outputs of :meth:`verify_multi` out (eight with ``counts_end``
+        under a policy); no host sync."""
         slots, k = drafts.shape
         dev = drafts.device
         i32 = torch.int32
@@ -641,14 +822,19 @@ class InferenceEngine:
                      widths=torch.where(active, widths + 1, 0).to(i32))
         x = torch.cat([tok[:, None], drafts], dim=1).long()
         logits, _ = self.module(x, cache=cache)
-        # the greedy contract: fp32 argmax, ties to the lowest id
-        g = _sample_tokens(logits).to(i32)                   # [slots, K+1]
-        jk = torch.arange(k, device=dev)
-        ok = (drafts == g[:, :k]) & (jk[None, :] < widths[:, None])
-        a = torch.cumprod(ok.to(i32), dim=1).sum(dim=1).to(i32)
-        bonus = torch.gather(g, 1, a[:, None].long())
-        jw = torch.arange(k + 1, device=dev)
         drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], 1)
+        if policy:
+            a, bonus, counts = self._accept_policy(logits, drafts_pad,
+                                                   widths, active, policy)
+            bonus = bonus[:, None]
+        else:
+            # the greedy contract: fp32 argmax, ties to the lowest id
+            g = _sample_tokens(logits).to(i32)               # [slots, K+1]
+            jk = torch.arange(k, device=dev)
+            ok = (drafts == g[:, :k]) & (jk[None, :] < widths[:, None])
+            a = torch.cumprod(ok.to(i32), dim=1).sum(dim=1).to(i32)
+            bonus = torch.gather(g, 1, a[:, None].long())
+        jw = torch.arange(k + 1, device=dev)
         # emitted stream: accepted drafts, then the bonus token
         out_toks = torch.where(jw[None, :] < a[:, None], drafts_pad, bonus)
         is_eos = (out_toks == eos_ids[:, None]) & (eos_ids[:, None] >= 0)
@@ -665,8 +851,69 @@ class InferenceEngine:
         tok_end = torch.where(n > 0, last, tok)
         active_end = active & ~(has_eos & (n_eos <= n)) & \
             (emitted_end < budgets)
-        return (out_toks, valid, tok_end, active_end, lengths + n,
-                emitted_end, torch.minimum(a, n))
+        out = (out_toks, valid, tok_end, active_end, lengths + n,
+               emitted_end, torch.minimum(a, n))
+        return out + (counts,) if policy else out
+
+    def _accept_policy(self, logits, drafts_pad, widths, active, policy):
+        """The column scan of the JAX ``verify_multi_policy``: per column
+        the policy chain, the draft's accept-or-resample and the bonus
+        draw; returns (accepted count, the token after them, counts)."""
+        slots = drafts_pad.shape[0]
+        rows = torch.arange(slots, device=drafts_pad.device)
+        counts = policy["counts"].clone()
+        keys, temps = policy["keys"], policy["temps"]
+        base = policy["tok_base"].long()
+        accepting = active
+        acc = torch.zeros(slots, dtype=torch.int32, device=rows.device)
+        bonus = torch.zeros_like(acc)
+        for j in range(drafts_pad.shape[1]):
+            lg = self._process(logits[:, j], counts, policy)
+            d = drafts_pad[:, j]
+            is_draft = (j < widths) & accepting
+            is_bonus = (j == widths) & accepting
+            accept_col, fallback = pipeline.accept_or_resample(
+                lg, d, keys, base + j, temps)
+            bonus_col = pipeline.bonus_sample(lg, keys, base + j, temps)
+            draft_accept = is_draft & accept_col
+            reject_now = is_draft & ~accept_col
+            bonus = torch.where(reject_now, fallback,
+                                torch.where(is_bonus, bonus_col, bonus))
+            counts.index_put_((rows, d.long()), draft_accept.to(torch.int32),
+                              accumulate=True)
+            acc = acc + draft_accept.to(torch.int32)
+            accepting = draft_accept
+        return acc, bonus, counts
+
+    @torch.no_grad()
+    def copy_page(self, pools, src_page, dst_page):
+        """Copy ONE KV page in place across every leaf of every layer's
+        pool (the prefix cache's copy-on-write, the JAX
+        ``engine.py:1117-1147``): a quantized pool's scale rows move with
+        their payload under the same page id, or the private copy would
+        dequantize with the wrong scales.  The page ids are device int32
+        scalars, so which pages are copied never captures a new graph:
+        a CUDA engine replays one graph (kind ``"copy_page"``) per pool
+        set.  Returns the same ``pools`` object."""
+        shapes = {"src": ((1,), np.int32), "dst": ((1,), np.int32)}
+        values = {"src": np.array([src_page], np.int32),
+                  "dst": np.array([dst_page], np.int32)}
+        graph, inputs = self._inputs("copy_page", (), shapes, values, pools,
+                                     self._copy_page_body)
+        if graph is not None:
+            graph.replay()
+        else:
+            self._copy_page_body(pools, **inputs)
+        return pools
+
+    @staticmethod
+    def _copy_page_body(pools, *, src, dst):
+        src, dst = src.long(), dst.long()
+        for layer in pools["layers"]:
+            for t in layer.values():
+                raw = t.view(torch.uint8)    # bit for bit, any dtype
+                raw.index_copy_(0, dst, raw.index_select(0, src))
+        return ()
 
     def _graph(self, kind, bucket, shapes, pools, body):
         """The cached graph of ``kind`` for this bucket over these pools,
@@ -696,26 +943,41 @@ class InferenceEngine:
             self._capture_s[kind] += time.monotonic() - t0
         return graphs[(kind, bucket)]
 
+    def serving_capture_count(self, kind):
+        """Graphs of one ``kind`` captured by this engine so far:
+        ``"decode_multi"``, ``"decode_multi_policy"``, ``"verify"``,
+        ``"verify_policy"`` or ``"copy_page"``."""
+        return self._captures[kind]
+
     def serving_decode_multi_capture_count(self):
-        """Horizon graphs captured by this engine so far (the counterpart
-        of the JAX ``serving_decode_multi_compile_count``)."""
-        return self._captures["decode_multi"]
+        """Horizon graphs captured by this engine so far, greedy and
+        policy summed (the counterpart of the JAX
+        ``serving_decode_multi_compile_count``)."""
+        return self._captures["decode_multi"] + \
+            self._captures["decode_multi_policy"]
 
     def serving_decode_multi_capture_seconds(self):
         """Wall seconds this engine spent capturing horizon graphs
         (warm-up included)."""
-        return self._capture_s["decode_multi"]
+        return self._capture_s["decode_multi"] + \
+            self._capture_s["decode_multi_policy"]
 
     def serving_verify_capture_count(self):
-        """Verify graphs captured by this engine so far (the counterpart
-        of the JAX ``serving_verify_compile_count``): at most one per
-        spec-K bucket per pool set."""
-        return self._captures["verify"]
+        """Verify graphs captured by this engine so far, greedy and
+        policy summed (the counterpart of the JAX
+        ``serving_verify_compile_count``): at most one per spec-K bucket
+        and path per pool set."""
+        return self._captures["verify"] + self._captures["verify_policy"]
 
     def serving_verify_capture_seconds(self):
         """Wall seconds this engine spent capturing verify graphs
         (warm-up included)."""
-        return self._capture_s["verify"]
+        return self._capture_s["verify"] + self._capture_s["verify_policy"]
+
+    def serving_page_copy_capture_count(self):
+        """``copy_page`` graphs captured so far (the counterpart of the
+        JAX ``serving_page_copy_compile_count``): one per pool set."""
+        return self._captures["copy_page"]
 
     def copy_to_host_async(self, *tensors):
         """Start copying device tensors to the host (pinned buffers,

@@ -3,7 +3,7 @@
     python -m deepspeed_tpu_torch.profiling.decode_profile \
         [--layers 32] [--batch 4] [--context 128] [--horizon 8] \
         [--dtype bfloat16|float32|int8] [--kv-dtype int8|fp8|...] \
-        [--graph | --eager] [--verify-k 1,2,4,8] [--seed 0]
+        [--graph | --eager] [--verify-k 1,2,4,8] [--policy] [--seed 0]
 
 Builds Llama-2-7B at full width (``--layers`` cuts depth) with seeded
 random weights, fills ``--batch`` slots of a paged pool to ``--context``
@@ -27,8 +27,13 @@ of one horizon between CUDA events.  ``--verify-k`` profiles, per mode,
 a 1-step horizon and then one speculative ``verify_multi`` round per
 listed K (every slot proposing K drafts, so K+1 columns a slot) over the
 same pools, each as one "step": what a verify round costs against a
-decode step (``verify_over_step``).  Needs a CUDA device; it does not
-run anywhere else.
+decode step (``verify_over_step``).  ``--policy`` profiles, beside each
+greedy dispatch, its decoding-policy twin over the same pools
+(``decode_multi_policy`` / ``verify_multi_policy``) with every slot
+sampled — temperature 0.8, top-k 50, top-p 0.95, the three history
+penalties over token counts — and reports ``policy_over_greedy``, the
+ratio of their device times between CUDA events.  Needs a CUDA device;
+it does not run anywhere else.
 """
 
 import argparse
@@ -89,6 +94,31 @@ def profile_mode(engine, dispatch, horizon):
                          horizon} for e in top]}
 
 
+def policy_lanes(batch, vocab, seed):
+    """Every slot sampled: temperature 0.8, top-k 50, top-p 0.95,
+    repetition 1.1, presence 0.2, frequency 0.1 over random token
+    counts, the grammar mask all-allowed."""
+    from deepspeed_tpu_torch.serving.sampling import request_key
+    rng = np.random.default_rng(seed)
+    return dict(keys=np.stack([request_key(seed + i) for i in range(batch)]),
+                tok_base=np.zeros(batch, np.int32),
+                temps=np.full(batch, 0.8, np.float32),
+                top_ks=np.full(batch, 50, np.int32),
+                top_ps=np.full(batch, 0.95, np.float32),
+                rep_pens=np.full(batch, 1.1, np.float32),
+                pres_pens=np.full(batch, 0.2, np.float32),
+                freq_pens=np.full(batch, 0.1, np.float32),
+                counts=rng.integers(0, 2, (batch, vocab)).astype(np.int32),
+                mask=np.ones((batch, vocab), bool))
+
+
+def with_ratio(res, greedy):
+    """``res`` with its device time over the greedy dispatch's."""
+    res["policy_over_greedy"] = res["event_ms_per_step"] / \
+        greedy["event_ms_per_step"]
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32)
@@ -105,6 +135,8 @@ def main():
     ap.add_argument("--verify-k", default=None,
                     help="comma-separated K: profile a 1-step horizon and "
                     "one verify round per K")
+    ap.add_argument("--policy", action="store_true",
+                    help="also profile the decoding-policy twins")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -142,6 +174,7 @@ def main():
                 pools=pools, horizon=args.horizon,
                 budgets=np.full(args.batch, args.horizon, np.int32),
                 eos_ids=np.full(args.batch, -1, np.int32))
+    lanes = policy_lanes(args.batch, cfg.vocab_size, args.seed)
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in (*model.parameters(), *model.buffers()))
     out = {"gpu": smi, "model": "llama2-7b", "layers": args.layers,
@@ -153,6 +186,10 @@ def main():
         if not ks:
             out[name] = profile_mode(
                 eng, lambda: eng.decode_multi(**call), args.horizon)
+            if args.policy:
+                out[name + "_policy"] = with_ratio(profile_mode(
+                    eng, lambda: eng.decode_multi_policy(**call, **lanes),
+                    args.horizon), out[name])
             continue
         one = dict(call, horizon=1,
                    budgets=np.ones(args.batch, np.int32))
@@ -171,6 +208,14 @@ def main():
                 eng, lambda: eng.verify_multi(**verify), 1)
             r["verify_over_step"] = r["event_ms_per_step"] / \
                 res["horizon_1"]["event_ms_per_step"]
+            if args.policy:
+                res[f"verify_policy_k{k}"] = with_ratio(profile_mode(
+                    eng, lambda: eng.verify_multi_policy(**verify, **lanes),
+                    1), r)
+        if args.policy:
+            res["horizon_1_policy"] = with_ratio(profile_mode(
+                eng, lambda: eng.decode_multi_policy(**one, **lanes), 1),
+                res["horizon_1"])
     print(json.dumps(out), flush=True)
 
 

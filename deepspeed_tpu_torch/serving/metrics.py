@@ -7,9 +7,12 @@ the host waited on the device.  Latency samples are durations from
 ``time.monotonic()``.
 Terminal outcomes are counted distinctly (completed / failed / shed /
 cancelled).  Speculative rounds count their draft tokens, acceptances,
-emitted tokens, rollbacks and contained drafter faults.  The
-prefix-cache, tenancy and memory-telemetry counters, and the monitor
-event sink, come with their subsystems (ROADMAP.md Queue A4, A10).
+emitted tokens, rollbacks and contained drafter faults.  The prefix
+cache counts its admission lookups, hits, reused (prefill-saved) tokens
+and drained pages, and the decoding-policy subsystem its sampled and
+grammar intakes, policy dispatches and grammar violations.  The
+tenancy and memory-telemetry counters, and the monitor event sink, come
+with their subsystems (ROADMAP.md Queue A10).
 """
 
 from collections import deque
@@ -57,6 +60,17 @@ class ServingMetrics:
         self.spec_degraded = 0         # drafter faults contained
         self.spec_degrade_log = deque(maxlen=64)  # (step, rid, reason)
         self.spec_wait_s = 0.0         # harvest time blocked on verifies
+        # prefix cache (admission-time KV reuse)
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefill_tokens_saved = 0  # == cached prefix tokens reused
+        self.cache_evictions = 0       # cached pages drained under pressure
+        # decoding-policy subsystem (serving/sampling/)
+        self.sampled_requests = 0      # intakes with a sampled policy
+        self.grammar_requests = 0      # intakes carrying a grammar
+        self.policy_dispatches = 0     # dispatches on the policy bodies
+        self.grammar_violations = 0    # grammar cursor rejected a token
+        self.grammar_violation_log = deque(maxlen=64)  # (step, rid)
 
     def record_step(self, *, queue_depth, page_utilization,
                     device_wait_s, host_s):
@@ -116,6 +130,38 @@ class ServingMetrics:
         return self.spec_accepted / self.spec_slot_rounds \
             if self.spec_slot_rounds else 0.0
 
+    def record_prefix(self, cached_tokens, prompt_tokens):
+        """One admission-time prefix-cache lookup: ``cached_tokens`` of
+        the ``prompt_tokens``-long prompt came from cached pages (0: a
+        miss).  Every cached token is a prefill token not computed."""
+        self.prefix_lookups += 1
+        if cached_tokens > 0:
+            self.prefix_hits += 1
+            self.prefill_tokens_saved += cached_tokens
+
+    def record_cache_eviction(self, pages):
+        """Cached pages drained back to the free list under pool pressure
+        (reclaim, not failure)."""
+        self.cache_evictions += pages
+
+    def record_policy_request(self, *, sampled, grammar):
+        """One intake carried a non-greedy decoding policy: it samples or
+        penalizes (``sampled``) and / or is grammar-constrained."""
+        self.sampled_requests += bool(sampled)
+        self.grammar_requests += bool(grammar)
+
+    def record_policy_dispatch(self):
+        """One dispatch ran a policy body (``decode_multi_policy`` /
+        ``verify_multi_policy``) instead of the greedy one."""
+        self.policy_dispatches += 1
+
+    def record_grammar_violation(self, step, rid=None):
+        """The host grammar cursor rejected a token the device emitted;
+        the device mask should make this impossible, so each one is a
+        fault (the request fails)."""
+        self.grammar_violations += 1
+        self.grammar_violation_log.append((step, rid))
+
     def record_first_token(self, ttft_s):
         self.ttft_s.append(ttft_s)
         self.tokens_emitted += 1
@@ -165,6 +211,17 @@ class ServingMetrics:
             "spec_rollbacks": self.spec_rollbacks,
             "spec_rollback_tokens": self.spec_rollback_tokens,
             "spec_degraded": self.spec_degraded,
+            "prefix_lookups": self.prefix_lookups,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_rate": round(
+                self.prefix_hits / self.prefix_lookups, 4)
+            if self.prefix_lookups else 0.0,
+            "prefill_tokens_saved": self.prefill_tokens_saved,
+            "cache_evictions": self.cache_evictions,
+            "sampled_requests": self.sampled_requests,
+            "grammar_requests": self.grammar_requests,
+            "policy_dispatches": self.policy_dispatches,
+            "grammar_violations": self.grammar_violations,
         }
         out["horizon_wait_s"] = round(self.horizon_wait_s, 6)
         out["spec_wait_s"] = round(self.spec_wait_s, 6)

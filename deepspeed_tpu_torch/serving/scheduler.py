@@ -49,6 +49,36 @@ barrier steps: nothing chains while a drafter is configured.  A drafter
 that raises degrades that request to plain decode (sticky); the round
 and the loop go on.
 
+**Prefix cache** (``prefix_cache=True``, ``serving/prefix_cache.py``).
+Finished requests donate their full pages to a radix index keyed by
+exact token ids.  Admission longest-prefix matches each prompt (capped
+at ``len(prompt) - 1``, so at least one token is prefilled and gives the
+boundary logits): matched full pages are shared read-only into the
+slot's table (``PagePool`` refcounts), a partly matched page is copied
+into a fresh private page on the device (``engine.copy_page``,
+copy-on-write), and chunked prefill resumes at the cached boundary.
+Cached pages are reclaimable capacity: under pool pressure the LRU
+pages only the cache holds drain before any request is preempted, and
+admission, horizon and spec-K reservation and chaining count them as
+free.  Admission (and so every copy) happens on barrier steps only.
+
+**Decoding policy** (``serving/sampling/``).  Every request carries a
+``SamplingParams`` (temperature, top-k, top-p, repetition / presence /
+frequency penalties; the scheduler's ``do_sample`` / ``temperature`` /
+``top_k`` / ``top_p`` are the default), a ``seed`` (the scheduler's by
+default) keying its
+position-indexed threefry stream (token ``n`` draws from
+``fold_in(key, n)``, so preemption, chaining and the horizon change
+nothing), and optionally a grammar (regex / JSON schema) compiled on the
+host to a per-state token mask.  A batch with any such request runs the
+policy bodies (``decode_multi_policy`` / ``verify_multi_policy``), every
+knob a per-slot lane, so any mix replays one graph per bucket; a greedy
+batch under a greedy default keeps the greedy bodies and captures no
+policy graph.  A grammar slot pins the horizon to 1 (its mask is a host
+function of the tokens emitted so far), never chains and never drafts;
+sampled slots verify by leftover-probability rejection sampling when the
+drafter opts in (``supports_sampling``).
+
 Failure policy: an error attributable to one request (its prefill, its
 token callback, its drafter) fails that request only (a drafter's only
 degrades its speculation); load the system cannot serve is shed (state
@@ -57,22 +87,28 @@ horizon boundary; terminal requests move to a bounded ``completed``
 history.
 
 Not in this port yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item when asked for): prefix cache, sampling/grammar
-policies (sampled verification too), tenancy, tracing, memory telemetry,
-the monitor, handoff, drain and the online tuner.
+ROADMAP.md item when asked for): tenancy, tracing, memory telemetry,
+the monitor, handoff (``sample_offset`` too), drain and the online
+tuner.
 """
 
+import json
 import time
 from collections import deque
 
 import numpy as np
 
-from deepspeed_tpu_torch.inference.engine import check_greedy
 from deepspeed_tpu_torch.ops.quant.kv import kv_dtype_name
 from deepspeed_tpu_torch.serving.metrics import ServingMetrics
 from deepspeed_tpu_torch.serving.page_manager import (PagedKVManager,
                                                       PagePoolExhausted,
                                                       default_page_size)
+from deepspeed_tpu_torch.serving.prefix_cache import PrefixCache
+from deepspeed_tpu_torch.serving.sampling import (GREEDY,
+                                                  GrammarConstraintError,
+                                                  SamplingParams,
+                                                  compile_grammar,
+                                                  request_key)
 from deepspeed_tpu_torch.serving.spec_decode import NgramDrafter
 
 WAITING, PREFILL, RUNNING, FINISHED = "waiting", "prefill", "running", \
@@ -81,16 +117,8 @@ CANCELLED, FAILED, SHED = "cancelled", "failed", "shed"
 TERMINAL = frozenset((FINISHED, CANCELLED, FAILED, SHED))
 
 # JAX-scheduler options the port does not run yet -> ROADMAP.md item; an
-# option passed with an "off" value (None, False, 0, "off", or the JAX
-# default in _OFF) is accepted
+# option passed with an "off" value (None, False, 0 or "off") is accepted
 _UNPORTED = {
-    "prefix_cache": "Queue A4 (prefix cache with copy_page)",
-    "prefix_cache_pages": "Queue A4 (prefix cache with copy_page)",
-    "top_k": "Queue A6 (sampling and grammar policies)",
-    "top_p": "Queue A6 (sampling and grammar policies)",
-    "sampling": "Queue A6 (sampling and grammar policies)",
-    "seed": "Queue A6 (sampling and grammar policies)",
-    "grammar": "Queue A6 (sampling and grammar policies)",
     "tenancy": "Queue A10 (tenancy)",
     "tenant": "Queue A10 (tenancy)",
     "adapter": "Queue A10 (tenancy)",
@@ -111,7 +139,6 @@ _UNPORTED = {
     "handoff": "Queue A10 (disaggregated serving)",
     "sample_offset": "Queue A10 (disaggregated serving)",
 }
-_OFF = {"top_p": 1.0}
 
 
 def _pow2_buckets(top):
@@ -132,8 +159,7 @@ def _reject_unported(where, options):
     for key, value in options.items():
         if key not in _UNPORTED:
             raise TypeError(f"{where}() got an unexpected argument {key!r}")
-        if value not in (None, False, 0, "off") and \
-                value != _OFF.get(key, "off"):
+        if value not in (None, False, 0, "off"):
             raise NotImplementedError(
                 f"{where}({key}=...) is not ported to the PyTorch package "
                 f"yet: see ROADMAP.md {_UNPORTED[key]}")
@@ -162,6 +188,15 @@ class Request:
         self.out_tokens = []
         self.state = WAITING
         self.prefill_pos = 0
+        self.cached_prefix_tokens = 0   # prefix-cache reuse at last admit
+        # decoding policy (serving/sampling/): the params, the PRNG seed
+        # (token n draws from fold_in(PRNGKey(seed), sample_offset + n);
+        # sample_offset stays 0 until handoff is ported) and the grammar
+        # cursor
+        self.sampling = GREEDY
+        self.seed = 0
+        self.sample_offset = 0
+        self.grammar = None          # GrammarConstraint cursor or None
         self.error = None            # reason string for failed/shed
         self.cancelled = False
         self.t_submit = time.monotonic()
@@ -197,12 +232,19 @@ class ServingScheduler:
 
     def __init__(self, engine, *, num_slots=8, num_pages=64, page_size=None,
                  max_pages_per_slot=None, prefill_chunk=16, max_queue=256,
-                 do_sample=False, temperature=1.0,
-                 completed_history=4096, decode_horizon_steps=8,
-                 overlap=True, spec_decode=None, spec_k=8, spec_drafter=None,
+                 do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+                 seed=0, completed_history=4096, decode_horizon_steps=8,
+                 overlap=True, prefix_cache=False, prefix_cache_pages=None,
+                 spec_decode=None, spec_k=8, spec_drafter=None,
                  kv_dtype=None, **options):
         _reject_unported("ServingScheduler", options)
-        check_greedy(do_sample, temperature)
+        # the scheduler-wide decoding policy every request defaults to;
+        # a greedy default keeps greedy batches on the greedy bodies
+        self.default_sampling = SamplingParams(
+            do_sample=do_sample, temperature=temperature, top_k=top_k,
+            top_p=top_p)
+        self._default_greedy = self.default_sampling.is_greedy
+        self.default_seed = int(seed)   # a request without seed= keys on it
         if page_size is None:
             page_size = default_page_size()
         if max_pages_per_slot is None:
@@ -213,6 +255,11 @@ class ServingScheduler:
         self.max_queue = int(max_queue)
         self.kv = PagedKVManager(num_pages, page_size, num_slots,
                                  max_pages_per_slot)
+        # radix prefix cache over pages donated by finished requests;
+        # its pages are reclaimable capacity (LRU-drained under pressure)
+        self.prefix_cache = PrefixCache(
+            self.kv.pool, max_pages=prefix_cache_pages) \
+            if prefix_cache else None
         # kv_dtype overrides the engine's configured kv_cache_dtype for
         # THIS scheduler's pools: a float name or "int8" / "fp8"
         self.pools = engine.init_paged_cache(num_pages, page_size,
@@ -231,6 +278,18 @@ class ServingScheduler:
         self._step_window = deque(maxlen=16)
         self._tok_window = deque(maxlen=32)   # per-token wall time
         self._eos_ids = np.full(num_slots, -1, np.int32)
+        # per-slot policy mirrors, staged into the policy bodies' lanes
+        # (greedy slots carry the no-op encodings, sampling/params.py)
+        self._samp_temps = np.zeros(num_slots, np.float32)
+        self._samp_topk = np.zeros(num_slots, np.int32)
+        self._samp_topp = np.ones(num_slots, np.float32)
+        self._samp_rep = np.ones(num_slots, np.float32)
+        self._samp_pres = np.zeros(num_slots, np.float32)
+        self._samp_freq = np.zeros(num_slots, np.float32)
+        self._samp_keys = np.zeros((num_slots, 2), np.uint32)
+        self._tok_counts = None      # lazy [num_slots, vocab] int32
+        self._grammar_masks = None   # lazy [num_slots, vocab] bool
+        self._grammar_cache = {}     # (spec json, eos) -> prototype cursor
         self._wall_s = None
         self.overlap = bool(overlap)
         self._inflight = deque()     # dispatched horizons, FIFO, depth <= 2
@@ -240,7 +299,7 @@ class ServingScheduler:
         self.decode_horizon_steps = max(1, int(decode_horizon_steps))
         self.horizon_buckets = _pow2_buckets(self.decode_horizon_steps)
         # speculative decoding: a drafter proposes up to K tokens per
-        # slot and ONE verify_multi round scores them (greedy only)
+        # slot and ONE verify_multi round scores them
         self.spec_k = max(1, int(spec_k))
         self.spec_k_buckets = _pow2_buckets(self.spec_k)
         self._spec = None
@@ -264,13 +323,31 @@ class ServingScheduler:
             raise ValueError(
                 "spec_decode='draft' needs a spec_drafter="
                 "DraftModelDrafter(...) carrying the draft engine")
+        # a drafter without lossless sampled verification loses only its
+        # sampled slots' proposals; under a sampled default that is every
+        # slot, so speculation is off, with the reason in spec_mode
+        if self._spec is not None and not self._default_greedy and \
+                not getattr(self._spec, "supports_sampling", False):
+            self._spec = None
+            self.spec_mode = "off (drafter lacks supports_sampling)"
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt, max_new_tokens=32, eos_token_id=None,
-               on_token=None, deadline_s=None, **options):
+               on_token=None, deadline_s=None, sampling=None, seed=None,
+               grammar=None, **options):
         """Queue a request; raises :class:`QueueFull` at max_queue.
         ``deadline_s`` is a relative budget: a request that cannot finish
-        inside it is shed instead of served late."""
+        inside it is shed instead of served late.
+
+        Decoding policy, per request: ``sampling`` is a
+        :class:`~deepspeed_tpu_torch.serving.sampling.SamplingParams` or
+        a wire dict over the scheduler's default; ``seed`` keys the
+        request's position-keyed stream (the scheduler's ``seed``, 0 by
+        default, when omitted: deterministic and replayable);
+        ``grammar`` is a constraint spec (``{"regex": ...}``
+        / ``{"json_schema": ...}`` / ``{"response_format":
+        "json_object"}``) compiled on the host to a per-step mask over
+        the byte vocabulary.  A bad spec or param raises here."""
         _reject_unported("submit", options)
         if len(self.waiting) >= self.max_queue:
             raise QueueFull(f"waiting queue at max_queue={self.max_queue}")
@@ -283,12 +360,124 @@ class ServingScheduler:
                 "(min(max_pages_per_slot, num_pages) * page_size)")
         req = Request(prompt, max_new_tokens, eos_token_id, on_token,
                       deadline_s=deadline_s)
+        self._apply_policy(req, sampling, seed, grammar)
         if req.max_new_tokens <= 0:
             self._finalize(req, FINISHED)
             return req
         self.requests[req.rid] = req
         self.waiting.append(req)
         return req
+
+    # ------------------------------------------------- decoding policy
+    def _apply_policy(self, req, sampling, seed, grammar):
+        """Attach the per-request decoding policy at intake (the JAX
+        ``_apply_policy``): a bad spec is rejected before any page is
+        held."""
+        req.sampling = SamplingParams.from_dict(
+            sampling, defaults=self.default_sampling)
+        req.seed = self.default_seed if seed is None else int(seed)
+        if grammar is not None:
+            req.grammar = self._compile_grammar(grammar, req.eos_token_id)
+        if self._req_needs_policy(req):
+            self.metrics.record_policy_request(
+                sampled=not req.sampling.is_greedy,
+                grammar=req.grammar is not None)
+
+    def _compile_grammar(self, spec, eos_token_id):
+        """Spec dict -> a fresh cursor.  The DFA and its per-state token
+        masks are cached per (spec, eos), so requests sharing a schema
+        share one :class:`TokenDFA`; each request gets its own cursor."""
+        if hasattr(spec, "token_mask"):     # a pre-built cursor
+            return spec
+        key = (json.dumps(spec, sort_keys=True),
+               None if eos_token_id is None else int(eos_token_id))
+        proto = self._grammar_cache.get(key)
+        if proto is None:
+            proto = compile_grammar(spec, self._vocab_size(),
+                                    eos_token_id=eos_token_id)
+            self._grammar_cache[key] = proto
+        return proto.fresh()
+
+    def _vocab_size(self):
+        return int(self.engine.module.cfg.vocab_size)
+
+    @staticmethod
+    def _req_needs_policy(req):
+        return req.sampling.needs_policy or req.grammar is not None
+
+    def _batch_needs_policy(self, slots):
+        """A dispatch takes the policy bodies when any of its requests
+        samples, penalizes or is constrained, or the default is sampled
+        (its explicitly greedy rows are argmax-exact there too)."""
+        return (not self._default_greedy) or any(
+            self._req_needs_policy(self.slot_req[s]) for s in slots)
+
+    def _ensure_policy_tables(self):
+        if self._tok_counts is None:
+            v = self._vocab_size()
+            self._tok_counts = np.zeros((self.num_slots, v), np.int32)
+            self._grammar_masks = np.ones((self.num_slots, v), bool)
+
+    def _seed_slot_policy(self, slot, req):
+        """Stage one admitted request's policy into the slot mirrors;
+        its counts come from its true history ``orig_prompt +
+        out_tokens`` (after a preemption the prompt already holds the
+        emitted tokens)."""
+        if not (self._req_needs_policy(req) or
+                self._tok_counts is not None):
+            return
+        self._ensure_policy_tables()
+        sp = req.sampling
+        self._samp_temps[slot] = sp.staged_temperature
+        self._samp_topk[slot] = 0 if sp.is_greedy else sp.top_k
+        self._samp_topp[slot] = 1.0 if sp.is_greedy else sp.top_p
+        self._samp_rep[slot] = sp.repetition_penalty
+        self._samp_pres[slot] = sp.presence_penalty
+        self._samp_freq[slot] = sp.frequency_penalty
+        self._samp_keys[slot] = request_key(req.seed)
+        v = self._tok_counts.shape[1]
+        hist = np.asarray(req.orig_prompt + req.out_tokens, np.int64)
+        hist = hist[(hist >= 0) & (hist < v)]
+        self._tok_counts[slot] = np.bincount(hist, minlength=v)[:v]
+        self._grammar_masks[slot] = True if req.grammar is None \
+            else req.grammar.token_mask()
+
+    def _policy_args(self, running):
+        """The staged per-slot lanes one policy dispatch takes;
+        ``tok_base`` is each request's position base, so the body's fold
+        index ``tok_base + emitted`` is the token's absolute position in
+        the request's stream."""
+        self._ensure_policy_tables()
+        base = np.zeros(self.num_slots, np.int32)
+        for s in running:
+            req = self.slot_req[s]
+            base[s] = req.sample_offset + len(req.out_tokens)
+        return dict(keys=self._samp_keys, tok_base=base,
+                    temps=self._samp_temps, top_ks=self._samp_topk,
+                    top_ps=self._samp_topp, rep_pens=self._samp_rep,
+                    pres_pens=self._samp_pres, freq_pens=self._samp_freq,
+                    counts=self._tok_counts, mask=self._grammar_masks)
+
+    def _note_emitted(self, slot, req, tok):
+        """Policy bookkeeping of one delivered token: the count mirror and
+        the grammar cursor.  A grammar rejection raises into the caller's
+        per-request containment."""
+        if self._tok_counts is not None and \
+                0 <= tok < self._tok_counts.shape[1]:
+            self._tok_counts[slot, tok] += 1
+        if req.grammar is not None and not req.grammar.finished:
+            try:
+                req.grammar.advance(tok)
+            except GrammarConstraintError:
+                self.metrics.record_grammar_violation(self.step_idx,
+                                                      req.rid)
+                raise
+
+    @staticmethod
+    def _grammar_finished(req):
+        """A constrained request finishes when its cursor is done (eos
+        consumed, or no continuation left), with or without an eos."""
+        return req.grammar is not None and req.grammar.done
 
     # --------------------------------------------------------- accounting
     def _emit(self, req, tok):
@@ -322,15 +511,35 @@ class ServingScheduler:
             except Exception:   # a broken drafter must not break retire
                 pass
 
-    def _vacate(self, slot):
-        self._spec_release(slot, self.slot_req[slot])
-        self.kv.release_slot(slot)
+    def _vacate(self, slot, donate=False):
+        req = self.slot_req[slot]
+        self._spec_release(slot, req)
+        if donate and self.prefix_cache is not None:
+            self._donate_pages(slot, req)
+        else:
+            self.kv.release_slot(slot)
         self.slot_req[slot] = None
         self.lengths[slot] = 0
 
+    def _donate_pages(self, slot, req):
+        """Retirement hands the slot's FULL pages to the prefix cache (the
+        JAX ``_donate_pages``).  The true sequence is ``orig_prompt +
+        out_tokens`` (after a preemption ``prompt`` already holds emitted
+        tokens).  The last token was never fed back, so its K/V was never
+        written: only pages inside the first ``len - 1`` tokens are
+        donated — after a spec round that is the accepted tokens only,
+        never a rejected draft's rows.  Pages the cache declines
+        (duplicate chains, its cap) and the partial tail are freed."""
+        seq = req.orig_prompt + req.out_tokens
+        n_full = max(0, len(seq) - 1) // self.kv.page_size
+        pages = self.kv.take_slot_pages(slot)
+        keep, tail = pages[:n_full], pages[n_full:]
+        leftover = self.prefix_cache.insert(seq, keep) if keep else []
+        self.kv.pool.free(leftover + tail)
+
     def _retire(self, slot):
         req = self.slot_req[slot]
-        self._vacate(slot)
+        self._vacate(slot, donate=True)
         self._finalize(req, FINISHED)
         if self._collect is not None:
             self._collect[req.rid] = list(req.out_tokens)
@@ -362,11 +571,35 @@ class ServingScheduler:
         self.metrics.record_preemption()
         return victim
 
+    def _reclaim_cached(self, n_pages, protect=frozenset()):
+        """Drain up to ``n_pages`` pages only the prefix cache holds (LRU)
+        back to the free list.  Returns the pages freed (0 with the cache
+        off, empty, or pinned by live sharers)."""
+        if self.prefix_cache is None or n_pages <= 0:
+            return 0
+        freed = self.prefix_cache.evict(n_pages, protect)
+        if freed:
+            self.metrics.record_cache_eviction(freed)
+        return freed
+
+    def _reclaimable(self, protect=frozenset()):
+        """Pages a drain of the prefix cache could free right now."""
+        return 0 if self.prefix_cache is None else \
+            self.prefix_cache.reclaimable_pages(protect)
+
     def _grow_or_evict(self, slot, target_len):
-        """``ensure_capacity`` with preempt-the-youngest behind it.
+        """``ensure_capacity`` with the reclaim policy behind it: pages
+        only the prefix cache holds drain first (reclaimable capacity,
+        not live state), then the youngest request is preempted.
         Returns False when ``slot`` itself was preempted; raises
-        :class:`PagePoolExhausted` when nothing is left to evict."""
+        :class:`PagePoolExhausted` when nothing is left to drain or
+        evict."""
         while not self.kv.ensure_capacity(slot, target_len):
+            # the whole known shortfall in one batched drain
+            short = self.kv.pages_needed(slot, target_len) - \
+                self.kv.pool.free_pages
+            if self._reclaim_cached(max(1, short)):
+                continue
             victim = self._preempt_youngest(protect=slot)
             if victim is None:
                 raise PagePoolExhausted(
@@ -380,8 +613,15 @@ class ServingScheduler:
     def _estimated_service_steps(self, req):
         """Iterations this request still needs if admitted now: remaining
         prefill chunks + one horizon per ``decode_horizon_steps`` tokens
-        (optimistic, so shedding only fires on hopeless requests)."""
+        (optimistic, so shedding only fires on hopeless requests).  The
+        tokens a prefix-cache hit would skip are not priced."""
         pending = max(0, len(req.prompt) - req.prefill_pos)
+        if self.prefix_cache is not None and req.prefill_pos == 0 \
+                and pending > 1:
+            full, _, plen = self.prefix_cache.match(
+                req.prompt, limit=len(req.prompt) - 1)
+            pending = max(1, pending - len(full) * self.kv.page_size
+                          - plen)
         prefill = -(-pending // self.prefill_chunk)
         horizons = -(-max(1, req.remaining_new) // self.decode_horizon_steps)
         return prefill + horizons
@@ -484,9 +724,24 @@ class ServingScheduler:
                 req = None
             if req is None:
                 break
-            # admission control: the whole prompt must fit now
-            if self.kv.pool.pages_for_tokens(len(req.prompt)) > \
-                    self.kv.pool.free_pages:
+            hit, protect = None, frozenset()
+            need = self.kv.pool.pages_for_tokens(len(req.prompt))
+            if self.prefix_cache is not None:
+                # longest-prefix match, capped at len(prompt) - 1 so at
+                # least one prompt token is prefilled (the boundary
+                # logits the first token comes from)
+                hit = self.prefix_cache.match(req.prompt,
+                                              limit=len(req.prompt) - 1)
+                need -= len(hit[0])
+                protect = frozenset(id(n) for n in hit[0] + (
+                    [hit[1]] if hit[1] is not None else []))
+            # admission control: the UNIQUE part of the prompt must fit
+            # now; matched full pages are shared, and pages only the
+            # cache holds count as capacity (drained with the match
+            # protected), after checking the drain can cover it
+            short = need - self.kv.pool.free_pages
+            if short > 0 and (short > self._reclaimable(protect) or
+                              self._reclaim_cached(short, protect) < short):
                 break
             self.waiting.popleft()
             self.slot_req[slot] = req
@@ -494,7 +749,49 @@ class ServingScheduler:
             req.t_admit = now
             self._eos_ids[slot] = -1 if req.eos_token_id is None \
                 else int(req.eos_token_id)
+            self._seed_slot_policy(slot, req)
             self.lengths[slot] = 0
+            req.cached_prefix_tokens = 0
+            if hit is not None:
+                try:
+                    self._attach_prefix(slot, req, hit)
+                except Exception as e:   # the attach and its device copy
+                    # are this request's work: fail it, not admission
+                    self._close_slot(slot, FAILED,
+                                     f"{type(e).__name__}: {e}")
+
+    def _attach_prefix(self, slot, req, hit):
+        """Map a matched cached chain into the admitted slot (the JAX
+        ``_attach_prefix``): full pages are shared read-only, a partly
+        matched page is copied on the device into a fresh PRIVATE page
+        (copy-on-write: the slot will append into it, and the cached
+        original must stay unchanged for its other readers).  Prefill
+        resumes at the cached boundary, ``lengths[slot]`` giving the
+        positions."""
+        full_nodes, pnode, plen = hit
+        cached = 0
+        if full_nodes:
+            self.kv.attach_prefix(slot,
+                                  self.prefix_cache.acquire(full_nodes))
+            cached = len(full_nodes) * self.kv.page_size
+        if pnode is not None and self.kv.pool.can_allocate(1):
+            page = self.kv.pool.allocate(1)[0]
+            # adopted BEFORE the device copy: if the copy raises, closing
+            # the slot releases the page instead of leaking it
+            self.kv.adopt_page(slot, page)
+            self.pools = self.engine.copy_page(self.pools, pnode.page, page)
+            self.prefix_cache.touch(pnode)
+            self.prefix_cache.cow_copies += 1
+            cached += plen
+        if cached:
+            self.prefix_cache.tokens_reused += cached
+            self.lengths[slot] = cached
+            req.prefill_pos = cached
+            req.cached_prefix_tokens = cached
+        # one lookup per admission, counted once the outcome is known
+        self.prefix_cache.lookups += 1
+        self.prefix_cache.hits += bool(cached)
+        self.metrics.record_prefix(cached, len(req.prompt))
 
     def _prefill(self):
         """One prompt chunk per prefilling slot (contained per request);
@@ -529,23 +826,46 @@ class ServingScheduler:
                      if self.slot_req[s] is r and r.state == PREFILL]
         if not finishing:
             return
-        toks = self.engine.sample_from_logits([lg for _, _, lg in finishing])
+        rows = [lg for _, _, lg in finishing]
+        sl = [s for s, _, _ in finishing]
+        if self._batch_needs_policy(sl):
+            # the first token under the decoding policy: the pipeline
+            # and position-keyed stream of the policy horizons (token n
+            # of the request draws from fold_in(key, sample_offset + n))
+            self._ensure_policy_tables()
+            idx = np.array([r.sample_offset + len(r.out_tokens)
+                            for _, r, _ in finishing], np.int32)
+            toks = self.engine.sample_from_logits_policy(
+                rows, self._samp_keys[sl], idx, self._samp_temps[sl],
+                self._samp_topk[sl], self._samp_topp[sl],
+                self._samp_rep[sl], self._samp_pres[sl],
+                self._samp_freq[sl], self._tok_counts[sl],
+                self._grammar_masks[sl])
+        else:
+            toks = self.engine.sample_from_logits(rows)
         for (slot, req, _), tok in zip(finishing, toks):
             try:
                 self._emit(req, tok)
+                self._note_emitted(slot, req, tok)
             except Exception as e:
                 self._close_slot(slot, FAILED, f"{type(e).__name__}: {e}")
                 continue
-            if req._finished_by(tok):
+            if req._finished_by(tok) or self._grammar_finished(req):
                 self._retire(slot)
             else:
                 self.last_tok[slot] = tok
                 req.state = RUNNING
+                if req.grammar is not None:
+                    self._grammar_masks[slot] = req.grammar.token_mask()
 
     # -------------------------------------------------- horizon decode
     def _pick_horizon(self, running, now):
         """Largest useful horizon bucket: capped by the largest remaining
-        budget and by the tightest live deadline."""
+        budget and by the tightest live deadline.  A grammar slot pins the
+        batch to horizon 1: its mask is a host function of the tokens
+        emitted so far, so one staged mask covers one step."""
+        if any(self.slot_req[s].grammar is not None for s in running):
+            return 1
         h = min(self.decode_horizon_steps,
                 max(self.slot_req[s].remaining_new for s in running))
         deadlines = [self.slot_req[s].deadline for s in running
@@ -559,13 +879,20 @@ class ServingScheduler:
     def _reserve(self, running, horizon):
         """Reserve every running slot's pages for the whole horizon; under
         pool pressure the horizon shrinks bucket by bucket before any
-        eviction runs.  Returns (horizon, surviving slots)."""
+        eviction runs (pages only the prefix cache holds count as free).
+        Returns (horizon, surviving slots)."""
+        reclaimable = None           # one tree walk, and only when needed
         while horizon > 1:
             need = sum(self.kv.pages_needed(
                 s, int(self.lengths[s]) +
                 min(horizon, self.slot_req[s].remaining_new))
                 for s in running)
-            if need <= self.kv.pool.free_pages:
+            avail = self.kv.pool.free_pages
+            if need > avail:
+                if reclaimable is None:
+                    reclaimable = self._reclaimable()
+                avail += reclaimable
+            if need <= avail:
                 break
             horizon = _floor_bucket(self.horizon_buckets, horizon - 1)
         kept = []
@@ -620,6 +947,16 @@ class ServingScheduler:
             req = self.slot_req[slot]
             if req._spec_off:
                 continue
+            if req.grammar is not None:
+                # a draft column's validity depends on the mask after the
+                # one before it: the slot rides the round as a width-0
+                # one-token decode under its fresh mask
+                continue
+            if not req.sampling.is_greedy and \
+                    not getattr(self._spec, "supports_sampling", False):
+                # a drafter that has not opted into lossless sampled
+                # verification loses this slot's proposals, not the round
+                continue
             # never draft past the request's budget (the bonus token
             # supplies the last one) or the slot's page table
             k = min(self.spec_k if req._spec_k is None else req._spec_k,
@@ -669,11 +1006,17 @@ class ServingScheduler:
         k = self._spec_bucket(max(len(d) for d in drafts.values()))
         # a verify writes widths[s] + 1 positions (the rollback releases
         # the surplus): shrink the K bucket before any eviction runs
+        reclaimable = None
         while k > 1:
             need = sum(self.kv.pages_needed(
                 s, int(self.lengths[s]) + min(len(drafts.get(s, ())), k)
                 + 1) for s in running)
-            if need <= self.kv.pool.free_pages:
+            avail = self.kv.pool.free_pages
+            if need > avail:
+                if reclaimable is None:
+                    reclaimable = self._reclaimable()
+                avail += reclaimable
+            if need <= avail:
                 break
             k = _floor_bucket(self.spec_k_buckets, k - 1)
         kept = []
@@ -705,11 +1048,18 @@ class ServingScheduler:
             active[s] = True
             budgets[s] = self.slot_req[s].remaining_new
         self._chain_budgets = budgets
+        args = (self.last_tok, draft_arr, active, self.kv.table,
+                self.lengths, self.pools)
+        kw = dict(widths=widths, budgets=budgets, eos_ids=self._eos_ids)
+        if self._batch_needs_policy(running):
+            out = self.engine.verify_multi_policy(
+                *args, **kw, **self._policy_args(running))
+            self.metrics.record_policy_dispatch()
+            out = out[:7] + out[8:]   # counts_end: the host mirror rules
+        else:
+            out = self.engine.verify_multi(*args, **kw)
         toks, valid, tok_end, active_end, lengths_end, emitted_end, \
-            accepted, self.pools = self.engine.verify_multi(
-                self.last_tok, draft_arr, active, self.kv.table,
-                self.lengths, self.pools, widths=widths, budgets=budgets,
-                eos_ids=self._eos_ids)
+            accepted, self.pools = out
         self._inflight.append({
             "spec": True, "slots": list(running),
             "reqs": {s: self.slot_req[s] for s in running},
@@ -718,7 +1068,7 @@ class ServingScheduler:
             "host": self.engine.copy_to_host_async(toks, valid, accepted),
             "tok_end": tok_end, "active_end": active_end,
             "lengths_end": lengths_end, "emitted_end": emitted_end,
-            "release_after": set()})
+            "policy": None, "release_after": set()})
         return True
 
     def _dispatch(self):
@@ -744,13 +1094,26 @@ class ServingScheduler:
         # budgets baseline of any chained continuation: the device's
         # `emitted` carry counts from THIS dispatch
         self._chain_budgets = budgets
-        out = self.engine.decode_multi(
-            self.last_tok, active, self.kv.table, self.lengths, self.pools,
-            horizon=horizon, budgets=budgets, eos_ids=self._eos_ids)
+        args = (self.last_tok, active, self.kv.table, self.lengths,
+                self.pools)
+        kw = dict(horizon=horizon, budgets=budgets, eos_ids=self._eos_ids)
+        pol = None
+        if self._batch_needs_policy(running):
+            pol = self._policy_args(running)
+            out = self.engine.decode_multi_policy(*args, **kw, **pol)
+            self.metrics.record_policy_dispatch()
+        else:
+            out = self.engine.decode_multi(*args, **kw)
         self._commit_dispatch(out, running, horizon,
-                              {s: self.slot_req[s] for s in running})
+                              {s: self.slot_req[s] for s in running}, pol)
 
-    def _commit_dispatch(self, out, running, horizon, reqs):
+    def _commit_dispatch(self, out, running, horizon, reqs, policy=None):
+        if policy is not None:
+            # the policy body returns the counts carry before the pools:
+            # a chained continuation takes IT (the device's truth
+            # mid-chain), not the host mirror
+            policy = dict(policy, counts=out[6])
+            out = out[:6] + out[7:]
         toks, valid, tok_end, active_end, lengths_end, emitted_end, \
             self.pools = out
         self._inflight.append({
@@ -765,7 +1128,7 @@ class ServingScheduler:
             "host": self.engine.copy_to_host_async(toks, valid),
             "tok_end": tok_end, "active_end": active_end,
             "lengths_end": lengths_end, "emitted_end": emitted_end,
-            "release_after": set()})
+            "policy": policy, "release_after": set()})
 
     def _try_chain(self):
         """Dispatch the next horizon straight off the in-flight horizon's
@@ -794,6 +1157,9 @@ class ServingScheduler:
                 s not in self._zombies]
         if not cont:
             return False
+        if any(prev["reqs"][s].grammar is not None for s in cont):
+            # a grammar slot's next mask depends on the in-flight tokens
+            return False
         if all(prev["reqs"][s].remaining_new - prev["max_advance"][s] <= 0
                for s in cont):
             # the in-flight horizon exhausts every budget: a chained one
@@ -813,7 +1179,14 @@ class ServingScheduler:
             targets[s] = min(int(self.lengths[s]) + prev["max_advance"][s]
                              + horizon, cap)
             need += self.kv.pages_needed(s, targets[s])
-        if need > self.kv.pool.free_pages:
+        short = need - self.kv.pool.free_pages
+        # a chained dispatch never evicts a live slot (the device may
+        # still be writing its pages), but pages only the cache holds are
+        # read by no live row of the horizon in flight, and the next
+        # horizon runs after it in stream order: draining them is safe
+        # (after checking the drain can cover the shortfall)
+        if short > 0 and (short > self._reclaimable() or
+                          self._reclaim_cached(short) < short):
             return False
         for s in cont:
             if not self.kv.ensure_capacity(s, targets[s]):
@@ -824,13 +1197,22 @@ class ServingScheduler:
             # still had them active
             keep = np.ones(self.num_slots, bool)
             keep[list(self._zombies)] = False
-        out = self.engine.decode_multi(
-            prev["tok_end"], prev["active_end"], self.kv.table,
-            prev["lengths_end"], self.pools, horizon=horizon,
-            budgets=self._chain_budgets, eos_ids=self._eos_ids,
-            emitted=prev["emitted_end"], keep=keep)
+        args = (prev["tok_end"], prev["active_end"], self.kv.table,
+                prev["lengths_end"], self.pools)
+        kw = dict(horizon=horizon, budgets=self._chain_budgets,
+                  eos_ids=self._eos_ids, emitted=prev["emitted_end"],
+                  keep=keep)
+        pol = prev["policy"]
+        if pol is not None:
+            # membership is frozen, so the staged lanes are unchanged;
+            # tok_base stays the chain start's (the `emitted` carry keeps
+            # the stream's positions) and counts is the device carry
+            out = self.engine.decode_multi_policy(*args, **kw, **pol)
+            self.metrics.record_policy_dispatch()
+        else:
+            out = self.engine.decode_multi(*args, **kw)
         self._commit_dispatch(out, cont, horizon,
-                              {s: prev["reqs"][s] for s in cont})
+                              {s: prev["reqs"][s] for s in cont}, pol)
         return True
 
     def _harvest(self):
@@ -867,15 +1249,24 @@ class ServingScheduler:
                 try:
                     self._emit(req, tok)
                     pulled += 1
+                    # a grammar rejection of a delivered token fails this
+                    # request (the device mask should make it impossible)
+                    self._note_emitted(slot, req, tok)
                 except Exception as e:  # per-request callback fault
                     self._close_slot_or_defer(
                         slot, FAILED, f"{type(e).__name__}: {e}")
                     break
-                if req._finished_by(tok):
+                if req._finished_by(tok) or self._grammar_finished(req):
                     # the device froze the slot at this same token, so a
                     # chained horizon only reads its pages: release now
+                    # (a grammar cursor with no continuation finishes the
+                    # request without an eos)
                     self._retire(slot)
                     break
+            if self.slot_req[slot] is req and req.state == RUNNING and \
+                    req.grammar is not None:
+                # the next (barrier, horizon-1) dispatch's mask
+                self._grammar_masks[slot] = req.grammar.token_mask()
             if self.slot_req[slot] is req and req.state == RUNNING:
                 self.lengths[slot] += n
                 if n:
@@ -965,10 +1356,17 @@ class ServingScheduler:
         allocated, not what was configured)."""
         return kv_dtype_name(self.pools["layers"][0])
 
+    def _prefix_summary(self):
+        pc = self.prefix_cache
+        return {f"prefix_{k}": 0 if pc is None else getattr(pc, k)
+                for k in ("tokens_reused", "pages_shared", "cached_pages",
+                          "cow_copies", "donated_pages", "evicted_pages")}
+
     def summary(self):
         """Metrics summary of the last run() plus the pool's peak, the
-        weight and kv dtypes and the pools' bytes (every leaf, scale
-        leaves and sink pages included)."""
+        weight and kv dtypes, the pools' bytes (every leaf, scale leaves
+        and sink pages included), the default decoding policy and the
+        prefix cache's own counters."""
         out = self.metrics.summary(wall_s=self._wall_s)
         out.update(steps=self.step_idx, pool_pages=self.kv.pool.num_pages,
                    pool_peak_pages=self.kv.pool.peak_in_use,
@@ -977,6 +1375,9 @@ class ServingScheduler:
                    kv_dtype=self.kv_dtype_name,
                    weight_dtype=self.engine.weight_dtype_name,
                    spec_decode=self.spec_mode,
+                   decoding_policy=self.default_sampling.label(),
+                   prefix_cache=self.prefix_cache is not None,
+                   **self._prefix_summary(),
                    kv_pool_bytes_total=sum(
                        t.numel() * t.element_size()
                        for layer in self.pools["layers"]

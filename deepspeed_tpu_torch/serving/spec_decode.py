@@ -37,8 +37,9 @@ The drafter API is deliberately forgiving: ``propose`` may return fewer
 tokens than asked (or none — the slot then rides the verify dispatch as
 a plain one-token decode), and any exception it raises is contained by
 the scheduler (that request degrades to normal decode; the loop never
-dies).  Only greedy verification is ported (sampled verification is
-ROADMAP.md Queue A6), so nothing reads ``supports_sampling`` yet.
+dies).  ``supports_sampling`` is the drafter's opt-in to lossless
+sampled verification (``verify_multi_policy``): a drafter without it
+loses its sampled slots' proposals, never the round.
 """
 
 import numpy as np
@@ -59,9 +60,9 @@ class Drafter:
 
     name = "custom"
 
-    # Capability flag of the JAX package's sampled verification: the
-    # stock drafters opt in.  The port verifies greedily only (sampled
-    # verification is ROADMAP.md Queue A6), so nothing reads it yet.
+    # Capability flag of lossless sampled verification
+    # (``verify_multi_policy``): the stock drafters opt in; a drafter
+    # without it drafts for greedy requests only.
     supports_sampling = False
 
     def propose(self, items):

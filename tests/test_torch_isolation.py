@@ -222,3 +222,39 @@ def test_quant_modules_import_without_jax_triton_or_a_built_library(module):
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("module", ["serving.prefix_cache",
+                                    "serving.sampling",
+                                    "serving.sampling.grammar",
+                                    "serving.sampling.params",
+                                    "serving.sampling.pipeline",
+                                    "serving.sampling.prng"])
+def test_policy_and_prefix_modules_import_without_jax(module):
+    """The prefix cache and the decoding-policy modules are the port's
+    own copies: importing one, then drawing a sampled token and walking
+    a grammar on the CPU, loads neither jax nor the JAX package nor a
+    built library."""
+    code = (
+        "import sys, ctypes\n"
+        "loaded = []\n"
+        "cdll = ctypes.CDLL\n"
+        "ctypes.CDLL = lambda *a, **k: (loaded.append(a), cdll(*a, **k))[1]\n"
+        f"import deepspeed_tpu_torch.{module} as mod\n"
+        "import torch\n"
+        "from deepspeed_tpu_torch.serving import sampling as s\n"
+        "from deepspeed_tpu_torch.serving.prefix_cache import PrefixCache\n"
+        "from deepspeed_tpu_torch.serving.page_manager import PagePool\n"
+        "keys = s.prng.as_key(s.request_key(7))[None]\n"
+        "s.sample_processed(torch.randn(1, 16), keys, 3, torch.ones(1))\n"
+        "g = s.compile_grammar({'regex': 'ab+'}, 256)\n"
+        "g.advance(97)\n"
+        "assert g.token_mask()[98]\n"
+        "PrefixCache(PagePool(4, 2)).match([1, 2, 3])\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'deepspeed_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert not [a for a in loaded if 'build' in str(a)], loaded\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

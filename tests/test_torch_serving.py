@@ -30,6 +30,7 @@ from deepspeed_tpu_torch.models.llama import (Llama, llama_params_from_jax,
 from deepspeed_tpu_torch.serving import (PagedKVManager, PagePool,
                                          PagePoolExhausted, QueueFull,
                                          ServingScheduler)
+from deepspeed_tpu_torch.serving.scheduler import _UNPORTED
 
 EVICT = dict(num_slots=3, num_pages=4, page_size=8, max_pages_per_slot=4,
              prefill_chunk=8)
@@ -174,8 +175,8 @@ def test_cancel_backpressure_and_oversize(engines):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(prefix_cache=True), dict(top_k=5),
-    dict(tenancy=object()), dict(do_sample=True, temperature=0.7)])
+    dict(mem_telemetry=True), dict(tracer=object()),
+    dict(tenancy=object()), dict(online_tuner=True)])
 def test_unported_scheduler_options_raise(engines, kwargs):
     _, teng = engines
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -200,14 +201,59 @@ def test_scheduler_takes_the_jax_defaults_explicitly(engines):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(top_k=40), "A6"), (dict(top_p=0.9), "A6"),
+    (dict(top_k=40), None), (dict(top_p=0.9), None),
     (dict(monitor=object()), "A10")])
 def test_non_default_sampling_and_monitor_options_name_their_item(
         engines, kwargs, item):
+    """Sampling defaults (ROADMAP.md Queue A6) are ported; the monitor
+    (A10) still raises naming its item."""
     _, teng = engines
+    if item is None:
+        sched = ServingScheduler(teng, num_slots=1, num_pages=4,
+                                 page_size=8, **kwargs)
+        assert sched.default_sampling.is_greedy
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue {item}"):
         ServingScheduler(teng, num_slots=1, num_pages=4, page_size=8,
                          **kwargs)
+
+
+A4_A6_SCHEDULER = [dict(prefix_cache=True), dict(prefix_cache_pages=8),
+                   dict(prefix_cache=True, prefix_cache_pages=3),
+                   dict(do_sample=True), dict(temperature=0.7),
+                   dict(do_sample=True, temperature=0.7, top_k=5,
+                        top_p=0.9), dict(do_sample=True, seed=11)]
+
+
+@pytest.mark.parametrize("kwargs", A4_A6_SCHEDULER)
+def test_a4_and_a6_scheduler_options_run(engines, kwargs):
+    """The prefix cache (Queue A4) and the sampling defaults (A6) build a
+    scheduler that serves; ``seed``, ``sampling`` and ``grammar`` run on
+    submit."""
+    _, teng = engines
+    sched = ServingScheduler(teng, num_slots=2, num_pages=8, page_size=8,
+                             max_pages_per_slot=4, prefill_chunk=8,
+                             **kwargs)
+    assert (sched.prefix_cache is not None) == bool(
+        kwargs.get("prefix_cache"))
+    reqs = [sched.submit(np.arange(5, dtype=np.int32), max_new_tokens=4),
+            sched.submit(np.arange(6, dtype=np.int32), max_new_tokens=4,
+                         seed=3, sampling={"do_sample": True}),
+            sched.submit(np.arange(4, dtype=np.int32), max_new_tokens=12,
+                         grammar={"regex": "[a-c]{3}"})]
+    got = sched.run()
+    assert all(r.state == "finished" for r in reqs)
+    assert [len(got[r.rid]) for r in reqs] == [4, 4, 3]
+
+
+@pytest.mark.parametrize("key", sorted(_UNPORTED))
+def test_every_remaining_unported_option_names_its_item(engines, key):
+    _, teng = engines
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md {_UNPORTED[key].split(' (')[0]}"):
+        ServingScheduler(teng, num_slots=1, num_pages=4, page_size=8,
+                         **{key: object()})
+    assert "A4" not in _UNPORTED[key] and "A6" not in _UNPORTED[key]
 
 
 INERT = [("min_out_tokens", 1, 2), ("min_tokens", 1, 3),
@@ -241,10 +287,14 @@ def test_unported_request_options_raise(engines):
     _, teng = engines
     sched = ServingScheduler(teng, num_slots=1, num_pages=4, page_size=8,
                              prefix_cache=False, spec_decode="off")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sched.submit(np.zeros(3, np.int32), grammar={"regex": "a+"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        teng.generate(np.zeros((1, 3), np.int32), do_sample=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A10"):
+        sched.submit(np.zeros(3, np.int32), sample_offset=3)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A10"):
+        sched.submit(np.zeros(3, np.int32), tenant="acme")
+    # sampled generate (Queue A6) runs now
+    out = teng.generate(np.zeros((1, 3), np.int32), max_new_tokens=4,
+                        do_sample=True)
+    assert out.shape == (1, 7)
     with pytest.raises(TypeError):
         sched.submit(np.zeros(3, np.int32), colour="blue")
     with pytest.raises(TypeError):
