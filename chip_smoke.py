@@ -144,6 +144,23 @@ Phases, each of which must pass (any failure exits nonzero):
      heads) at 2 layers, bf16, a few short requests over bfloat16 and
      over int8 pools, so both paged kernels launch at group 8 on a
      serving path;
+  6g. GPT-2 family serving: decode_fwd against its plain version at
+     GPT-2 small heads (12 x 64) without and with ALiBi, BLOOM-560m heads
+     (16 x 64) with ALiBi and GPT-J heads (16 x 256), paged_decode_fwd /
+     paged_decode_quant_fwd at GPT-J heads; then, with seeded random
+     weights and configs written here after their public config.json:
+     (a) GPT-2 small fp32 through graph + overlap serving, an n-gram spec
+     run over the motif prompts and a prefix-cache run, each token-exact
+     against generate(); (b) GPT-2 small bf16 (a serve smoke reading)
+     and int8 weights over int8 KV on the same module (two runs
+     identical, teacher-forced logit delta under KV_LOGIT_DELTA_CEILING);
+     (c) BLOOM-560m, Pythia-160m, OPT-125m and GPT-J-6B width at 2 layers
+     served token-exact against generate() in fp32, BLOOM's paged decode
+     (ALiBi) launching decode_fwd and no paged kernel; (d) GPT-Neo-125M
+     generate() past its 256-token window equal to a full forward's
+     argmax, and its scheduler refused (local windows over pools, as in
+     the JAX model); decode_fwd, paged_decode_fwd, paged_decode_quant_fwd
+     and int8_matmul_fwd must each launch in the phase;
   7. train phase, fp32 oracle: GPT-2 small width at 2 layers, batch 2 x
      1024, one step through the flash kernels and one through the plain
      reference attention from the same weights; the loss, the global
@@ -159,7 +176,7 @@ Phases, each of which must pass (any failure exits nonzero):
      phases 5-6e, the quantized paged kernel and int8_matmul_fwd over
      phases 6b-6c (int8_matmul_fwd also in 6b's verify rounds), the grouped instantiations over 6d, flash kernels
      over phase 8, block-sparse kernels over phase 4c; each must be > 0;
-     ``launches_6f`` counts phase 6f's).
+     ``launches_6f`` counts phase 6f's, ``launches_6g`` phase 6g's).
 
 Each line of output is one JSON object; the last is
 {"ok": true, "device": {...}}.  TF32 is off for matmuls and cuDNN so
@@ -417,14 +434,22 @@ def batch_invariance(torch, kern, tq, seed, dtype_name="float32"):
 
 
 def dense_case(torch, dec, name, b, h, kv_h, d, max_len, positions, dtype,
-               rotations, seed):
+               rotations, seed, alibi=False):
+    """One dense-walk shape of ``decode_fwd`` against its plain version,
+    timed beside SDPA; ``alibi`` adds BLOOM's slope x key-position term
+    to the validity mask (the bias is then [b, h, 1, max_len])."""
     import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.models.gpt2 import alibi_slopes
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     pos = torch.tensor(positions, device=dev)
     bias = torch.where(torch.arange(max_len, device=dev)[None, :] <=
                        pos[:, None], 0.0, torch.finfo(torch.float32).min)
     bias = bias[:, None, None, :]          # [b, 1, 1, max_len], broadcast
+    if alibi:
+        bias = bias + alibi_slopes(h).to(dev)[None, :, None, None] * \
+            torch.arange(max_len, device=dev)[None, None, None, :]
     sets = []
     for _ in range(rotations):
         sets.append(tuple(
@@ -455,6 +480,7 @@ def dense_case(torch, dec, name, b, h, kv_h, d, max_len, positions, dtype,
     b_ms, b_by = bound_ms(n_bytes, 4 * b * max_len * h * d, dtype_name)
     split_keys = dec.dense_split_keys(max_len)
     out = {"phase": "kernel", "kernel": "decode_fwd", "case": name,
+           "alibi": alibi,
            "dtype": dtype_name, "batch": b, "heads": h, "kv_heads": kv_h,
            "head_dim": d, "max_len": max_len, "positions": list(positions),
            "split_keys": split_keys, "n_splits": -(-max_len // split_keys),
@@ -1823,6 +1849,229 @@ def serve_grouped(torch, deepspeed_tpu_torch, dec, seed):
         out["int8"]["paged_decode_quant_fwd"]
 
 
+# ------------------------------------------------ GPT-2 family serving
+#
+# Each configuration names its public config; the weights are seeded
+# random.  GPT-J-6B runs at its full width with 2 of its 28 layers.
+GPT2_FAMILY = {
+    # HF gpt2 config.json: n_embd 768, n_layer 12, n_head 12, vocab 50257
+    "gpt2-small": dict(vocab_size=50257, hidden_size=768, num_layers=12,
+                       num_heads=12, max_seq_len=1024),
+    # bigscience/bloom-560m config.json: hidden 1024, n_layer 24, n_head
+    # 16, vocab 250880, ALiBi, word_embeddings_layernorm
+    "bloom-560m": dict(vocab_size=250880, hidden_size=1024, num_layers=24,
+                       num_heads=16, max_seq_len=2048, pos_embed="none",
+                       use_alibi=True, embed_layernorm=True),
+    # EleutherAI/pythia-160m config.json: hidden 768, 12 layers, 12 heads,
+    # rotary_pct 0.25, use_parallel_residual, untied, hidden_act gelu,
+    # vocab 50304
+    "pythia-160m": dict(vocab_size=50304, hidden_size=768, num_layers=12,
+                        num_heads=12, max_seq_len=2048, pos_embed="none",
+                        rotary_dim=16, parallel_residual=True,
+                        tie_embeddings=False, activation="gelu_exact"),
+    # facebook/opt-125m config.json: hidden 768, 12 layers, 12 heads, ffn
+    # 3072, relu, learned positions at index + 2, vocab 50272
+    "opt-125m": dict(vocab_size=50272, hidden_size=768, num_layers=12,
+                     num_heads=12, max_seq_len=2048, activation="relu",
+                     pos_offset=2),
+    # EleutherAI/gpt-neo-125M config.json: hidden 768, 12 layers, 12
+    # heads, attention_types [[global, local], 6], window_size 256
+    "gpt-neo-125m": dict(vocab_size=50257, hidden_size=768, num_layers=12,
+                         num_heads=12, max_seq_len=2048, qkv_bias=False,
+                         attn_windows=(0, 256) * 6),
+    # EleutherAI/gpt-j-6b config.json: n_embd 4096, n_head 16 (d 256),
+    # rotary_dim 64 (rotate every two), parallel residual off one
+    # LayerNorm, unbiased attention, untied biased head, vocab 50400;
+    # 2 of its 28 layers
+    "gpt-j-6b (2 layers)": dict(
+        vocab_size=50400, hidden_size=4096, num_layers=2, num_heads=16,
+        max_seq_len=2048, pos_embed="none", rotary_dim=64,
+        rotary_interleaved=True, parallel_residual=True, single_ln=True,
+        attn_bias=False, tie_embeddings=False, lm_head_bias=True),
+}
+
+
+def gpt2_family_kernels(torch, dec):
+    """Row 1 at GPT-2 small heads without and with ALiBi, at BLOOM-560m
+    heads with ALiBi and at GPT-J's d 256; row 3 (float and int8 pools)
+    at GPT-J's heads; fp32 and bf16, each against its plain version."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for key, h, d, alibi in (("gpt2", 12, 64, False),
+                                 ("gpt2_alibi", 12, 64, True),
+                                 ("bloom_alibi", 16, 64, True),
+                                 ("gptj_d256", 16, 256, False)):
+            out[(key, dn)] = dense_case(
+                torch, dec, f"{key} heads {h} x {d} generate cache", 1, h, h,
+                d, 256, [215], dtype, rotations=8, seed=60, alibi=alibi)
+        for kv_name in (None, "int8"):
+            out[("gptj_paged", kv_name, dn)] = paged_case(
+                torch, dec, "gpt-j heads (16 x 256) serve batch", 16, 16,
+                256, 16, [0, 7, 100, 231], dtype, rotations=4, seed=61,
+                kv_name=kv_name)
+    return out
+
+
+def family_engine(torch, deepspeed_tpu_torch, name, seed, **kw):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2, GPTConfig
+    model = GPT2(GPTConfig(**GPT2_FAMILY[name], **kw.pop("cfg", {})),
+                 device="cuda")
+    engine = deepspeed_tpu_torch.init_inference(
+        model, max_out_tokens=512, **{"dtype": "float32",
+                                      "kv_cache_dtype": "float32", **kw})
+    return engine.init_params(seed)
+
+
+def family_serve(torch, dec, engine, name, prompts, max_new, sched_kwargs):
+    """generate() then a graph + overlap scheduler over the requests;
+    fails unless the streams are token-exact.  Returns the phase line
+    (with the decode launches of the serve run alone)."""
+    t0 = time.monotonic()
+    want = generated(engine, prompts, max_new)
+    gen_s = time.monotonic() - t0
+    before = dec.launch_counts()
+    got, sched, wall = serve(torch, engine, prompts, max_new, sched_kwargs)
+    counts = {k: v - before[k] for k, v in dec.launch_counts().items()}
+    check_exact(engine, f"serve_gpt2_family {name}", prompts, got, want)
+    cfg = engine.module.cfg
+    return {"phase": "serve_gpt2_family", "model": name,
+            "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+            "heads": cfg.num_heads, "vocab": cfg.vocab_size,
+            "params": sum(p.numel() for p in engine.module.parameters()),
+            "requests": len(prompts), "generate_s": round(gen_s, 3),
+            "serve_s": round(wall, 3), "captures": sched.captures,
+            "chained_horizons": sum(sched.chains),
+            "token_exact_vs_generate": True,
+            "serve_launches": counts}
+
+
+def serve_gpt2_family(torch, deepspeed_tpu_torch, dec, qk, seed,
+                      sched_kwargs):
+    """Phase 6g.  Returns the launch counts of the phase (every count is
+    set to 0 at its start and read at its end)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+    t_phase = time.monotonic()
+    dec.reset_launch_counts()
+    qk.reset_launch_counts()
+    prompts, max_new = make_requests(seed, 50257)
+    # (a) GPT-2 small, fp32: graphs + overlap, an n-gram spec run, a
+    # prefix-cache run, each token-exact against generate()
+    engine = family_engine(torch, deepspeed_tpu_torch, "gpt2-small", seed)
+    line = family_serve(torch, dec, engine, "gpt2-small", prompts, max_new,
+                        sched_kwargs)
+    motif, motif_new = motif_requests(seed, 50257)
+    toks, numbers, _ = spec_serve(torch, engine, motif, motif_new,
+                                  sched_kwargs)
+    check_exact(engine, "serve_gpt2_family gpt2-small ngram", motif,
+                toks[0], generated(engine, motif, motif_new))
+    if not numbers[0]["spec_dispatches"]:
+        fail(f"gpt2-small n-gram serve dispatched no verify: {numbers[0]}")
+    pre, pre_new = prefix_requests(seed, 50257)
+    got, s, _, _, _ = cached_serve(torch, engine, pre[:3], pre_new[:3],
+                                   sched_kwargs)
+    check_exact(engine, "serve_gpt2_family gpt2-small prefix", pre[:3],
+                got, generated(engine, pre[:3], pre_new[:3]))
+    if not s["prefix_hits"]:
+        fail(f"gpt2-small prefix cache: no hit ({s})")
+    line.update(spec=numbers[0], prefix_hits=s["prefix_hits"],
+                prefill_tokens_saved=s["prefill_tokens_saved"])
+    emit(line)
+    del engine
+    # (b) GPT-2 small in bf16: a serve smoke reading (the steady second
+    # run of one graph scheduler), then int8 weights (group 64) over
+    # int8 KV on the same module, quantized in place: two runs identical
+    # and the teacher-forced int8-KV logit delta under its ceiling
+    engine = family_engine(torch, deepspeed_tpu_torch, "gpt2-small", seed,
+                           dtype="bfloat16", kv_cache_dtype="bfloat16",
+                           cfg=dict(dtype=torch.bfloat16))
+    model = engine.module
+    sched = ServingScheduler(engine, **sched_kwargs)
+    first, _ = run_mix(torch, sched, prompts, max_new)
+    sched.metrics = ServingMetrics()
+    steps0 = sched.step_idx
+    again, wall = run_mix(torch, sched, prompts, max_new)
+    emit({"phase": "serve_gpt2_family_bf16", "model": "gpt2-small",
+          **serve_numbers(sched.metrics.summary(wall), wall,
+                          sched.step_idx - steps0),
+          "steady_equals_first_run": again == first})
+    del engine, sched
+    engine = deepspeed_tpu_torch.init_inference(
+        model, dtype="int8", kv_cache_dtype="int8", max_out_tokens=512)
+    sched = ServingScheduler(engine, **sched_kwargs)
+    first, _ = run_mix(torch, sched, prompts, max_new)
+    again, wall = run_mix(torch, sched, prompts, max_new)
+    seq = np.random.default_rng(seed + 8).integers(0, 50257, 200).astype(
+        np.int32)
+    deltas, argmax_agree, logit_scale = teacher_forced_delta(
+        engine, seq, sched_kwargs)
+    emit({"phase": "serve_gpt2_family_int8_weights_int8_kv",
+          "model": "gpt2-small", "compute": "bfloat16",
+          "two_runs_identical": again == first, "serve_s": round(wall, 3),
+          "teacher_forced_max_logit_delta": max(deltas),
+          "teacher_forced_argmax_agreement": argmax_agree,
+          "largest_logit": logit_scale,
+          "ceiling": KV_LOGIT_DELTA_CEILING})
+    if again != first or not max(deltas) < KV_LOGIT_DELTA_CEILING:
+        fail(f"gpt2-small int8 / int8: runs identical {again == first}, "
+             f"logit delta {max(deltas)}")
+    del engine, sched, model
+    torch.cuda.empty_cache()
+    # (c) BLOOM-560m, Pythia-160m, OPT-125m and GPT-J-6B width, fp32:
+    # served token-exact against generate(); BLOOM's ALiBi paged decode
+    # runs decode_fwd over the gathered pages and no paged kernel
+    for name in ("bloom-560m", "pythia-160m", "opt-125m",
+                 "gpt-j-6b (2 layers)"):
+        engine = family_engine(torch, deepspeed_tpu_torch, name, seed)
+        line = family_serve(torch, dec, engine, name, prompts[:3],
+                            max_new[:3], sched_kwargs)
+        counts = line["serve_launches"]
+        emit(line)
+        if name == "bloom-560m" and (
+                counts["decode_fwd"] <= 0 or counts["paged_decode_fwd"] or
+                counts["paged_decode_quant_fwd"]):
+            fail(f"bloom-560m paged decode launches {counts}: ALiBi over "
+                 "pools must run decode_fwd and no paged kernel")
+        del engine
+        torch.cuda.empty_cache()
+    # (d) GPT-Neo-125M: generate() past its 256-token window, held
+    # against a full forward's argmax (no cache, the plain local-window
+    # attention); a scheduler over its pools is refused
+    engine = family_engine(torch, deepspeed_tpu_torch, "gpt-neo-125m", seed)
+    prompt = np.random.default_rng(seed + 9).integers(0, 50257, 250).astype(
+        np.int32)
+    out = engine.generate(prompt[None], max_new_tokens=24)[0]
+    logits = engine.forward(out[None, :-1])[0, len(prompt) - 1:]
+    forced = [int(t) for t in logits.float().argmax(-1)]
+    check_exact(engine, "serve_gpt2_family gpt-neo-125m generate vs "
+                "forward", [prompt], [[int(t) for t in out[len(prompt):]]],
+                [forced])
+    try:
+        ServingScheduler(engine, **sched_kwargs)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        fail("gpt-neo-125m: the scheduler accepted local windows over pools")
+    emit({"phase": "serve_gpt2_family", "model": "gpt-neo-125m",
+          "generate_tokens": len(out), "window": 256,
+          "generate_equals_forward_argmax": True,
+          "scheduler_refused": refusal})
+    del engine
+    torch.cuda.empty_cache()
+    total = {**dec.launch_counts(), **qk.launch_counts()}
+    emit({"phase": "serve_gpt2_family_done", "launches": total,
+          "phase_s": round(time.monotonic() - t_phase, 3)})
+    missing = [k for k in ("decode_fwd", "paged_decode_fwd",
+                           "paged_decode_quant_fwd", "int8_matmul_fwd")
+               if total.get(k, 0) <= 0]
+    if missing:
+        fail(f"phase 6g: {missing} never launched ({total})")
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2082,6 +2331,14 @@ def main():
         torch, deepspeed_tpu_torch, dec, args.seed)
     torch.cuda.empty_cache()
 
+    # ---- GPT-2 family serving (6g): row 1 and row 3 at its heads, then
+    # its configurations served, with the phase's own launch counts
+    family_kernels = gpt2_family_kernels(torch, dec)
+    torch.cuda.empty_cache()
+    g_counts = serve_gpt2_family(torch, deepspeed_tpu_torch, dec, qk,
+                                 args.seed, sched_kwargs)
+    torch.cuda.empty_cache()
+
     # ---- train phases: the fp32 oracle, then the bf16 main path
     train_oracle(torch, fl, deepspeed_tpu_torch, args.seed)
     torch.cuda.empty_cache()
@@ -2138,6 +2395,19 @@ def main():
             "library_ms": r["library_ms"], "fp8_ms": r8["kernel_ms"]})
     kernels[2]["launches_6f"] = f_counts["paged_decode_quant_fwd"] + \
         q_counts["policy"]["paged_decode_quant_fwd"]
+    # phase 6g: the GPT-2 family's launches, and row 1 / row 3 at its
+    # heads (bf16): GPT-2 small 12 x 64 without and with ALiBi, BLOOM-560m
+    # 16 x 64 with ALiBi, GPT-J 16 x 256 (float and int8 pools for row 3)
+    for i, name in ((0, "paged_decode_fwd"), (1, "decode_fwd"),
+                    (2, "paged_decode_quant_fwd")):
+        kernels[i]["launches_6g"] = g_counts[name]
+    for key in ("gpt2", "gpt2_alibi", "bloom_alibi", "gptj_d256"):
+        kernels[1][f"{key}_heads_ms"] = \
+            family_kernels[(key, "bfloat16")]["kernel_ms"]
+    kernels[0]["gptj_d256_ms"] = \
+        family_kernels[("gptj_paged", None, "bfloat16")]["kernel_ms"]
+    kernels[2]["gptj_d256_ms"] = \
+        family_kernels[("gptj_paged", "int8", "bfloat16")]["kernel_ms"]
     # int8_matmul_fwd at the decode shape of the 7B serve phase (m = 4
     # slots, k = n = 4096, bf16); no single PyTorch call computes the
     # quantized function, so library_ms is null and the float layer's
@@ -2153,7 +2423,8 @@ def main():
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
         "float_linear_ms": r["float_linear_ms"],
-        "launches_6f": q_counts["policy"]["int8_matmul_fwd"]})
+        "launches_6f": q_counts["policy"]["int8_matmul_fwd"],
+        "launches_6g": g_counts["int8_matmul_fwd"]})
     # the flash kernels at shape (a), bf16: the train phase's shape; the
     # plain and SDPA times of the backward cover the pair (dq, dk, dv)
     r = flash_results[("a", "bfloat16")]

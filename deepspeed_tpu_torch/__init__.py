@@ -52,7 +52,9 @@ def init_inference(model=None, config=None, **kwargs):
     """Build an inference engine (``deepspeed_tpu.init_inference``).
 
     ``model`` is a native :class:`~deepspeed_tpu_torch.models.llama.Llama`
-    (HF checkpoint ingestion is ROADMAP.md Queue A8).  ``config`` is a
+    or :class:`~deepspeed_tpu_torch.models.gpt2.GPT2` (any variant of the
+    GPT-2 family's config; HF checkpoint ingestion is ROADMAP.md Queue
+    A8).  ``config`` is a
     :class:`~deepspeed_tpu_torch.inference.config.DeepSpeedInferenceConfig`,
     a dict or a JSON path; ``kwargs`` override its fields (``device``,
     ``dtype``, ...).  ``params=`` loads a state dict."""

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
-from deepspeed_tpu_torch.models import llama
+from deepspeed_tpu_torch.models import gpt2, kv_cache, llama
 from deepspeed_tpu_torch.ops import launch_counter
 from deepspeed_tpu_torch.ops.attention.decode import paged_kernel_decision
 from deepspeed_tpu_torch.ops.quant import kv as kvq
@@ -228,14 +228,17 @@ class _BodyGraph:
 
 
 class InferenceEngine:
-    """Wraps a ``Llama`` module for generation and paged serving."""
+    """Wraps a ``Llama`` or ``GPT2`` module for generation and paged
+    serving.  Both keep their caches in ``models/kv_cache.py``'s layout
+    (the JAX engine's ``_supports_cache`` / ``_paged_module``,
+    ``engine.py:620-700``)."""
 
     def __init__(self, model, config, params=None, seed=0):
-        if not isinstance(model, llama.Llama):
+        if not isinstance(model, (llama.Llama, gpt2.GPT2)):
             raise NotImplementedError(
-                f"the PyTorch package serves a native Llama only, got "
-                f"{type(model).__name__}: see ROADMAP.md Queue A7 (GPT-2) "
-                "and A8 (HF ingestion)")
+                "the PyTorch package serves a native Llama or GPT2 (the "
+                f"GPT-2 family) only, got {type(model).__name__}: see "
+                "ROADMAP.md Queue A8 (HF ingestion)")
         self._config = config
         self.device = resolve_device(config.device)
         if config.paged_kernel == "force" and self.device.type != "cuda":
@@ -313,6 +316,9 @@ class InferenceEngine:
         self._cast_params()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed if seed is None else int(seed))
+        if isinstance(self.module, gpt2.GPT2):
+            gpt2.init_gpt2_params(self.module, gen)
+            return self._postprocess_params(quantize=quantize)
         for name, p in self.module.named_parameters():
             if name.endswith(".scale"):
                 p.fill_(1.0)
@@ -456,8 +462,9 @@ class InferenceEngine:
         # quantized serving path is measured against
         cache_dtype = torch.float32 if kvq.is_quantized_kv(self.kv_dtype) \
             else self.kv_dtype
-        cache = llama.init_kv_cache(self.module.cfg, b, max_len=cache_len,
-                                    dtype=cache_dtype, device=self.device)
+        cache = kv_cache.init_kv_cache(
+            self.module.cfg, b, max_len=cache_len, dtype=cache_dtype,
+            device=self.device)
         logits, cache = self.module(
             torch.as_tensor(ids, device=self.device).long(), cache=cache)
         tok = _sample_tokens(logits[:, -1], self._next_key(), **policy)
@@ -514,7 +521,8 @@ class InferenceEngine:
             device_type=self.device.type, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
             dtype=self.dtype if quantized else storage,
-            storage_dtype=storage if quantized else None)
+            storage_dtype=storage if quantized else None,
+            has_bias=getattr(cfg, "use_alibi", False))
 
     def init_paged_cache(self, num_pages, page_size, kv_dtype=None):
         """Per-layer K/V page pools on the engine's device (each holds
@@ -522,15 +530,17 @@ class InferenceEngine:
         ``kv_dtype`` overrides the engine's configured kv_cache_dtype for
         THIS pool: a torch dtype, a float name or a quantized name
         ("int8" / "fp8" — the pools then carry f32 scale leaves)."""
+        cfg = self.module.cfg
+        if any(getattr(cfg, "attn_windows", ())):
+            raise NotImplementedError(gpt2.PAGED_WINDOWS_REFUSED)
         dt = self._resolve_kv_dtype(kv_dtype)
         dec = self.paged_kernel_decision(kv_dtype=dt)
         if dec["path"] == "unsupported":
             raise ValueError(dec["reason"])
         log_dist(f"paged attention path: {dec['path']} — {dec['reason']}",
                  ranks=[0])
-        return llama.init_paged_kv_cache(self.module.cfg, num_pages,
-                                         page_size, dtype=dt,
-                                         device=self.device)
+        return kv_cache.init_paged_kv_cache(cfg, num_pages, page_size,
+                                            dtype=dt, device=self.device)
 
     def kv_page_bytes(self, page_size, kv_dtype=None):
         """Exact bytes ONE paged-KV page costs across all layers (K + V

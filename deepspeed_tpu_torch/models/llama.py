@@ -10,13 +10,8 @@ cache's chunked prefill (``"slot"`` in the cache), speculative verify
 decode (``"active"``).  Sequence-parallel prefill and LoRA adapters
 (ROADMAP.md Queue A10) wait.
 
-Caches are dicts of tensors updated IN PLACE (the JAX model returned new
-arrays): the dense layer dict carries ``k``/``v`` buffers and a Python
-``index``; paged layers carry the pools of ``ops/quant/kv.py`` (whose
-last page is the drop sink): two float leaves, or four when the pool is
-quantized (int8 / fp8 payload plus per-row scale pools).  Attention runs
-in the float pools' dtype (the query is cast to it); over quantized
-pools it runs in the query's dtype, to which K/V dequantize.
+Caches are ``models/kv_cache.py``'s (updated in place; its attention
+branches and cache constructors serve this model and ``models/gpt2.py``).
 
 Every projection is a ``QDense``: float, or weight-only int8 after
 ``ops/quant/quantizer.quantize_tree`` (the engine's ``quantize=``).
@@ -29,16 +24,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepspeed_tpu_torch.ops.attention.decode import (_repeat_kv,
-                                                      decode_attention,
-                                                      paged_decode_attention)
+from deepspeed_tpu_torch.models.kv_cache import (  # noqa: F401
+    dense_cache_attention, init_kv_cache, init_paged_kv_cache,
+    paged_cache_attention)
+from deepspeed_tpu_torch.ops.attention.decode import _repeat_kv
 from deepspeed_tpu_torch.ops.attention.flash import (flash_attention,
                                                      resolve_attn_impl)
 from deepspeed_tpu_torch.ops.attention.reference import (apply_rotary_emb,
                                                          mha_reference)
-from deepspeed_tpu_torch.ops.quant.kv import (paged_gather,
-                                              paged_pool_layer, paged_write,
-                                              sink_page)
 from deepspeed_tpu_torch.ops.quant.qdense import QDense
 from deepspeed_tpu_torch.ops.quant.quantizer import QTensor
 
@@ -82,14 +75,6 @@ class RMSNorm(nn.Module):
         return (y * self.scale.float()).to(x.dtype)
 
 
-def _validity_bias(max_len, positions):
-    """Additive mask [b, l, max_len]: key j visible to a query at absolute
-    position p iff j <= p."""
-    k_pos = torch.arange(max_len, device=positions.device)
-    return torch.where(k_pos[None, None, :] <= positions[:, :, None], 0.0,
-                       torch.finfo(torch.float32).min)
-
-
 class LlamaAttention(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -119,68 +104,9 @@ class LlamaAttention(nn.Module):
             else:
                 out = mha_reference(q, k_full, v_full, causal=True)
         elif "k_pages" in cache:
-            pt = cache["page_table"]
-            ps, max_pages = cache["k_pages"].shape[1], pt.shape[1]
-            # float pools: attend in the pool's dtype; quantized pools
-            # dequantize to the query's (models/llama.py:160-161 of the
-            # JAX package)
-            attn_dtype = q.dtype if "k_scale" in cache \
-                else cache["k_pages"].dtype
-            sink = sink_page(cache)
-            if "slot" in cache:          # chunked prefill (b == 1)
-                slot, n_valid = cache["slot"], cache["n_valid"]
-                pos = positions[0]
-                valid = torch.arange(l, device=x.device) < n_valid
-                # padded rows past n_valid land in the sink; their table
-                # index is clamped (JAX clamps out-of-range gathers)
-                page_ids = torch.where(
-                    valid, pt[slot, (pos // ps).clamp(max=max_pages - 1)],
-                    sink)
-                paged_write(cache, page_ids, pos % ps, k[0], v[0])
-                k_slot, v_slot = paged_gather(cache, pt[slot][None],
-                                              attn_dtype)
-                bias = _validity_bias(max_pages * ps, positions)[:, None]
-                out = decode_attention(q.to(attn_dtype), k_slot, v_slot,
-                                       bias=bias)
-            elif "widths" in cache:      # speculative verify (l == K+1)
-                # column j of slot s writes position lengths[s] + j when
-                # j < widths[s] (0 for inactive slots); the rest land in
-                # the sink, their table index clamped.  Every column then
-                # attends causally over the slot's gathered pages: K+1
-                # query rows take the plain attention, as in the JAX
-                # package (models/llama.py:167-187 there)
-                write = torch.arange(l, device=x.device)[None, :] < \
-                    cache["widths"][:, None]
-                rows = torch.arange(b, device=x.device)[:, None]
-                page_ids = torch.where(
-                    write,
-                    pt[rows, (positions // ps).clamp(max=max_pages - 1)],
-                    sink)
-                paged_write(cache, page_ids, positions % ps, k, v)
-                k_all, v_all = paged_gather(cache, pt, attn_dtype)
-                bias = _validity_bias(max_pages * ps, positions)[:, None]
-                out = decode_attention(q.to(attn_dtype), k_all, v_all,
-                                       bias=bias)
-            else:                        # continuous-batch decode (l == 1)
-                pos = positions[:, 0]
-                rows = torch.arange(b, device=x.device)
-                page_ids = torch.where(
-                    cache["active"],
-                    pt[rows, (pos // ps).clamp(max=max_pages - 1)], sink)
-                paged_write(cache, page_ids, pos % ps, k[:, 0], v[:, 0])
-                out = paged_decode_attention(
-                    q.to(attn_dtype), cache["k_pages"], cache["v_pages"],
-                    pt, pos, k_scale=cache.get("k_scale"),
-                    v_scale=cache.get("v_scale"))
+            out = paged_cache_attention(q, k, v, positions, cache)
         else:                            # dense cache (generate)
-            index = cache["index"]
-            k_cache, v_cache = cache["k"], cache["v"]
-            k_cache[:, index:index + l] = k.to(k_cache.dtype)
-            v_cache[:, index:index + l] = v.to(v_cache.dtype)
-            new_cache = {"k": k_cache, "v": v_cache, "index": index + l}
-            bias = _validity_bias(k_cache.shape[1], positions)[:, None]
-            out = decode_attention(q.to(k_cache.dtype), k_cache, v_cache,
-                                   bias=bias)
+            out, new_cache = dense_cache_attention(q, k, v, cache, positions)
         out = out.to(x.dtype).reshape(b, l, h * d)
         return self.wo(out), new_cache
 
@@ -288,28 +214,6 @@ class Llama(nn.Module):
         if cache is not None:
             return logits, {"layers": new_layers}
         return logits
-
-
-def init_kv_cache(cfg, batch_size, max_len=None, dtype=torch.bfloat16,
-                  device=None):
-    """Empty dense KV cache (the ``generate()`` workspace)."""
-    max_len = max_len or cfg.max_seq_len
-    shape = (batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device),
-                        "index": 0} for _ in range(cfg.num_layers)]}
-
-
-def init_paged_kv_cache(cfg, num_pages, page_size, dtype=torch.bfloat16,
-                        device=None):
-    """Per-layer paged KV pools; GQA pools are sized to num_kv_heads and
-    stay grouped through the paged kernel.  ``dtype`` is a torch float
-    dtype or a quantized kv-dtype name ("int8" / "fp8": payload pools
-    plus per-row f32 scale pools, ``ops/quant/kv.py``)."""
-    return {"layers": [paged_pool_layer(num_pages, page_size,
-                                        cfg.num_kv_heads, cfg.head_dim,
-                                        dtype, device=device)
-                       for _ in range(cfg.num_layers)]}
 
 
 def llama_params_from_jax(tree):

@@ -96,7 +96,8 @@ def gather_pages(pages, page_table):
 
 
 def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
-                          head_dim, dtype=None, storage_dtype=None):
+                          head_dim, dtype=None, storage_dtype=None,
+                          has_bias=False):
     """The paged-attention dispatch rule, as data: ``{"path": "kernel" |
     "reference" | "unsupported", "reason": str}``.  A CPU tensor runs
     the plain version; a CUDA tensor runs the kernel when its shapes
@@ -107,7 +108,15 @@ def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
     (``num_heads / num_kv_heads``, MQA included) runs.  The kernels
     load 16 bytes per thread, so ``head_dim`` must be a whole number of
     16-byte loads of the STORAGE dtype: a multiple of 8 for 2- and
-    4-byte elements, of 16 for a 1-byte payload."""
+    4-byte elements, of 16 for a 1-byte payload.
+
+    ``has_bias`` (an additive bias such as ALiBi) takes the JAX route
+    (``deepspeed_tpu/ops/attention/decode.py:542-545``, ``:730-746``):
+    the slots' pages are gathered into contiguous buffers, dequantized
+    to the compute dtype where the pool is quantized, and the dense
+    kernel ``decode_fwd`` attends over them with the bias; the paged
+    kernels compute only the positional mask.  The load rule is then
+    the compute dtype's."""
     if device_type == "cpu":
         return {"path": "reference",
                 "reason": "CPU tensors run the plain PyTorch version"}
@@ -116,8 +125,8 @@ def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
                 "reason": f"no decode kernel for device {device_type!r}"}
     group = num_heads // num_kv_heads if num_kv_heads else 0
     quantized = storage_dtype is not None and storage_dtype != dtype
-    # elements in one 16-byte load of the stored type
-    per_load = 16 if quantized else 8
+    # elements in one 16-byte load of the type the kernel reads
+    per_load = 16 if quantized and not has_bias else 8
     if not num_kv_heads or num_heads % num_kv_heads:
         reason = (f"num_heads={num_heads} is not a multiple of "
                   f"num_kv_heads={num_kv_heads}")
@@ -126,10 +135,18 @@ def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
                   "int8 or float8_e4m3fn)")
     elif head_dim % per_load or head_dim > MAX_HEAD_DIM:
         reason = (f"head_dim={head_dim} must be a multiple of {per_load} "
-                  + ("(16-byte loads of a 1-byte payload) " if quantized
-                     else "") + f"and at most {MAX_HEAD_DIM}")
+                  + ("(16-byte loads of a 1-byte payload) "
+                     if per_load == 16 else "") +
+                  f"and at most {MAX_HEAD_DIM}")
     elif dtype is not None and dtype not in _KERNEL_DTYPES:
         reason = f"dtype {dtype} (the kernels take float32 and bfloat16)"
+    elif has_bias:
+        pools = "dequantized " if quantized else ""
+        return {"path": "kernel",
+                "reason": "CUDA tensor with an additive bias (ALiBi): the "
+                          f"slots' pages gathered {pools}into contiguous "
+                          "buffers, then the hand-written dense kernel "
+                          f"decode_fwd, group {group}"}
     else:
         what = "quantized-pool kernel" if quantized else "kernel"
         return {"path": "kernel",
@@ -163,15 +180,13 @@ def _raise_if_failed(name, err):
 # ---------------------------------------------------------------- paged
 
 
-def paged_decode_attention_plain(q, k_pages, v_pages, page_table, positions,
-                                 *, scale=None, k_scale=None, v_scale=None):
-    """Plain version of :func:`paged_decode_attention`: gather each
-    slot's pages into a contiguous buffer (a quantized pool's payload
-    and scales, dequantized to ``q.dtype``), mask keys past the
-    position, and run the dense plain attention — the JAX gather
-    fallback (``decode.py:730-746``)."""
-    d = q.shape[-1]
-    scale = float(scale) if scale is not None else 1.0 / (d ** 0.5)
+def _gathered(q, k_pages, v_pages, page_table, positions, k_scale, v_scale,
+              bias):
+    """Each slot's pages gathered into contiguous ``[slots, max_pages *
+    page_size, kv_heads, d]`` buffers (a quantized pool's payload and
+    scales dequantized to ``q.dtype``) and the additive fp32 bias over
+    them: keys past the position masked, plus ``bias`` when given — the
+    JAX gather path (``decode.py:730-746``)."""
     page_table = page_table.long()
     if k_scale is not None:
         from deepspeed_tpu_torch.ops.quant.kv import paged_gather
@@ -183,12 +198,29 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, positions,
         v_full = gather_pages(v_pages, page_table)
     k_pos = torch.arange(k_full.shape[1], device=q.device)
     mask = k_pos[None, None, None, :] <= positions.long()[:, None, None, None]
-    bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
-    return decode_attention_plain(q, k_full, v_full, bias=bias, scale=scale)
+    full_bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
+    if bias is not None:
+        full_bias = full_bias + bias.float()
+    return k_full, v_full, full_bias
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, positions,
+                                 *, scale=None, k_scale=None, v_scale=None,
+                                 bias=None):
+    """Plain version of :func:`paged_decode_attention`: gather each
+    slot's pages into a contiguous buffer (a quantized pool's payload
+    and scales, dequantized to ``q.dtype``), mask keys past the
+    position, add ``bias``, and run the dense plain attention — the JAX
+    gather fallback (``decode.py:730-746``)."""
+    k_full, v_full, full_bias = _gathered(q, k_pages, v_pages, page_table,
+                                          positions, k_scale, v_scale, bias)
+    return decode_attention_plain(q, k_full, v_full, bias=full_bias,
+                                  scale=scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
-                           scale=None, k_scale=None, v_scale=None):
+                           scale=None, k_scale=None, v_scale=None,
+                           bias=None):
     """Attention of ``q`` [slots, 1, heads, d] over a paged cache: pools
     ``k_pages``/``v_pages`` [num_pages, page_size, kv_heads, d] read
     through ``page_table`` [slots, max_pages]; keys at positions
@@ -197,7 +229,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
     kv_heads, 1] f32) mark a QUANTIZED pool (int8 / fp8 payload,
     ``ops/quant/kv.py``): a CUDA tensor then launches
     ``paged_decode_quant_fwd``, which dequantizes to ``q.dtype`` in
-    shared memory.  Returns [slots, 1, heads, d]."""
+    shared memory.  ``bias`` (broadcastable to [slots, heads, 1,
+    max_pages * page_size], e.g. ALiBi) is an extra additive term: as in
+    the JAX package the slots' pages are then gathered (and dequantized)
+    into contiguous buffers and a CUDA tensor launches the dense kernel
+    ``decode_fwd`` over them (:func:`paged_kernel_decision`).  Returns
+    [slots, 1, heads, d]."""
     slots, l, h, d = q.shape
     if l != 1:
         raise ValueError(f"paged decode takes one query token, got {l}")
@@ -208,16 +245,23 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
     decision = paged_kernel_decision(
         device_type=q.device.type, num_heads=h,
         num_kv_heads=k_pages.shape[2], head_dim=d, dtype=q.dtype,
-        storage_dtype=k_pages.dtype if quantized else None)
+        storage_dtype=k_pages.dtype if quantized else None,
+        has_bias=bias is not None)
     if decision["path"] == "reference":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, positions, scale=scale,
-            k_scale=k_scale, v_scale=v_scale)
+            k_scale=k_scale, v_scale=v_scale, bias=bias)
     if decision["path"] != "kernel":
         raise ValueError(decision["reason"])
     if not quantized and k_pages.dtype != q.dtype:
         raise ValueError(f"paged_decode_attention: q is {q.dtype} but the "
                          f"float pools hold {k_pages.dtype}")
+    if bias is not None:
+        k_full, v_full, full_bias = _gathered(
+            q, k_pages, v_pages, page_table, positions, k_scale, v_scale,
+            bias)
+        return decode_attention(q, k_full, v_full, bias=full_bias,
+                                scale=scale)
     page_table = page_table.to(torch.int32).contiguous()
     positions = positions.to(torch.int32).contiguous()
     scales = (k_scale, v_scale) if quantized else ()

@@ -48,3 +48,28 @@ def apply_rotary_emb(x, positions, *, base=10000.0):
     x1, x2 = x[..., :half], x[..., half:]
     rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return rotated.to(x.dtype)
+
+
+def apply_rotary_emb_interleaved(x, positions, *, base=10000.0):
+    """GPT-J's rotate-every-two convention: the pairs are (x[2i], x[2i+1])
+    instead of (x[i], x[i + half])
+    (``deepspeed_tpu/ops/attention/reference.py:83``)."""
+    half = x.shape[-1] // 2
+    freq = 1.0 / (base ** (torch.arange(0, half, dtype=torch.float32,
+                                        device=x.device) / half))
+    angles = positions[..., None].float() * freq
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    rotated = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rotated.reshape(x.shape).to(x.dtype)
+
+
+def apply_partial_rotary(x, positions, rotary_dim, *, base=10000.0,
+                         interleaved=False):
+    """Rotary on the first ``rotary_dim`` features only (GPT-J
+    ``rotary_dim``, GPT-NeoX ``rotary_pct``); the rest pass through
+    (``deepspeed_tpu/ops/attention/reference.py:99``)."""
+    fn = apply_rotary_emb_interleaved if interleaved else apply_rotary_emb
+    return torch.cat([fn(x[..., :rotary_dim], positions, base=base),
+                      x[..., rotary_dim:]], dim=-1)

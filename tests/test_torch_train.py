@@ -291,8 +291,7 @@ def test_config_resolves_batches_and_rejects_unknown_keys(tmp_path):
 @pytest.mark.parametrize("field,value,item", [
     ("dropout", 0.1, "A14"), ("remat", True, "A13"),
     ("scan_layers", True, "A13"), ("moe_num_experts", 4, "A10"),
-    ("use_alibi", True, "A7"), ("rotary_dim", 16, "A7"),
-    ("attn_windows", (0, 16), "A7"), ("attn_impl", "ring", "A10")])
+    ("attn_impl", "ring", "A10")])
 def test_unported_model_features_name_their_roadmap_item(field, value,
                                                          item):
     with pytest.raises(NotImplementedError, match=item):
@@ -302,7 +301,7 @@ def test_unported_model_features_name_their_roadmap_item(field, value,
 def test_unported_model_branches_and_engine_calls_raise():
     model = tgpt2.GPT2(tgpt2.gpt2_tiny())
     ids = torch.zeros(1, 4, dtype=torch.long)
-    for kw, item in ((dict(cache={}), "A7"), (dict(pld_theta=0.5), "A16"),
+    for kw, item in ((dict(pld_theta=0.5), "A16"),
                      (dict(rltd_keep=2), "A16")):
         with pytest.raises(NotImplementedError, match=item):
             model(ids, **kw)
@@ -314,3 +313,24 @@ def test_unported_model_branches_and_engine_calls_raise():
         deepspeed_tpu_torch.initialize(
             model=tgpt2.GPT2(tgpt2.gpt2_tiny()),
             config=dict(CONFIG, bf16={"enabled": True}), device="cpu")
+
+
+def test_local_windows_over_pools_are_refused():
+    """The refusal that stays: GPT-Neo's local windows serve through the
+    dense cache only, as in the JAX model
+    (``deepspeed_tpu/models/gpt2.py:155-156``); over pools the module
+    and the engine raise naming the JAX limit."""
+    cfg = tgpt2.gpt2_tiny(attn_windows=(0, 16))
+    eng = deepspeed_tpu_torch.init_inference(
+        tgpt2.GPT2(cfg), dtype="float32", kv_cache_dtype="float32",
+        device="cpu").init_params(0)
+    with pytest.raises(NotImplementedError, match="local attn_windows"):
+        eng.init_paged_cache(4, 8)
+    pools = tgpt2.init_paged_kv_cache(cfg, 4, 8, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="local attn_windows"):
+        eng.module(torch.zeros(1, 1, dtype=torch.long), cache=dict(
+            pools, page_table=torch.zeros(1, 2, dtype=torch.int32),
+            lengths=torch.zeros(1, dtype=torch.int32),
+            active=torch.ones(1, dtype=torch.bool)))
+    out = eng.generate(np.arange(20)[None], max_new_tokens=4)
+    assert out.shape == (1, 24)
