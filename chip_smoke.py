@@ -161,6 +161,18 @@ Phases, each of which must pass (any failure exits nonzero):
      argmax, and its scheduler refused (local windows over pools, as in
      the JAX model); decode_fwd, paged_decode_fwd, paged_decode_quant_fwd
      and int8_matmul_fwd must each launch in the phase;
+  6h. HF ingestion: two save_pretrained-layout directories written here
+     without transformers or safetensors, from seeded weights, with
+     config.json copied from the public files: Llama-2-7B width (2 of
+     32 layers) as bf16 safetensors over two shards with an index, and
+     GPT-2 small (full) as fp32 pytorch_model.bin with Conv1D names;
+     each through init_inference(<dir>, dtype="float32"): every
+     ingested weight equal to the file's after the layout map, graph +
+     overlap serving token-exact against generate() over phase 5's
+     requests; the Llama directory again with dtype="int8" and int8 KV,
+     two runs identical; ingest seconds and GB/s; paged_decode_fwd,
+     paged_decode_quant_fwd, int8_matmul_fwd and decode_fwd must each
+     launch in the phase;
   7. train phase, fp32 oracle: GPT-2 small width at 2 layers, batch 2 x
      1024, one step through the flash kernels and one through the plain
      reference attention from the same weights; the loss, the global
@@ -171,12 +183,23 @@ Phases, each of which must pass (any failure exits nonzero):
      losses must be finite and fall; tokens/s, ms/step, peak memory and
      MFU are printed (the step breakdown is
      deepspeed_tpu_torch/profiling/train_profile.py);
+  8b. checkpoints of phase 8's engine: save, two more steps; a fresh
+     engine loads and takes the same two steps (losses, masters and
+     moments equal bit for bit); an async save followed at once by a
+     step leaves the pre-step masters in the files; verify_checkpoint
+     passes, a flipped byte fails it and raises CheckpointCorrupt at
+     load; init_inference(checkpoint=) serves the saved weights with
+     logits equal to an fp32 module of them and, in bf16, to the
+     training module's own; save / async-return / load seconds and
+     bytes;
   9. the launch count of every kernel over its path, CUDA-graph replays
      included (decode kernels over
      phases 5-6e, the quantized paged kernel and int8_matmul_fwd over
      phases 6b-6c (int8_matmul_fwd also in 6b's verify rounds), the grouped instantiations over 6d, flash kernels
      over phase 8, block-sparse kernels over phase 4c; each must be > 0;
-     ``launches_6f`` counts phase 6f's, ``launches_6g`` phase 6g's).
+     ``launches_6f`` counts phase 6f's, ``launches_6g`` phase 6g's,
+     ``launches_6h`` phase 6h's, ``launches_8b`` phase 8b's; the flash
+     kernels must launch in 8b).
 
 Each line of output is one JSON object; the last is
 {"ok": true, "device": {...}}.  TF32 is off for matmuls and cuDNN so
@@ -189,6 +212,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -926,7 +950,9 @@ def train_oracle(torch, fl, deepspeed_tpu_torch, seed):
 def train_bf16(torch, deepspeed_tpu_torch, seed):
     """Full GPT-2 small in bf16 over fp32 masters with bench.py's config:
     3 warm-up steps and 10 timed steps cycling 2 seeded batches, then a
-    gas-4 window at micro batch 2."""
+    gas-4 window at micro batch 2.  Returns (the phase line, the first
+    engine, its config, the 2 batches): phase 8b continues that
+    engine."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2, gpt2_small
     batch, seq = 8, 1024
     cfg = gpt2_small(dtype="bfloat16")
@@ -955,8 +981,7 @@ def train_bf16(torch, deepspeed_tpu_torch, seed):
     tokens_per_s = 10 * batch * seq / wall
     flops_per_token = 6 * n_params + 12 * cfg.num_layers * \
         cfg.hidden_size * seq
-    del engine
-    torch.cuda.empty_cache()
+    engine8 = engine            # phase 8b's checkpoints continue it
 
     config4 = dict(config, train_micro_batch_size_per_gpu=2,
                    gradient_accumulation_steps=4)
@@ -989,7 +1014,7 @@ def train_bf16(torch, deepspeed_tpu_torch, seed):
     if not losses[12] < losses[0]:
         fail(f"bf16 loss on batch 0 did not fall: {losses[0]} -> "
              f"{losses[12]}")
-    return res
+    return res, engine8, config, data
 
 
 # ------------------------------------------------------------- serve phase
@@ -2072,6 +2097,310 @@ def serve_gpt2_family(torch, deepspeed_tpu_torch, dec, qk, seed,
     return total
 
 
+# ------------------------------------------------- HF ingestion (6h)
+#
+# Each config.json is copied by hand from the public file; the weights are
+# seeded random, written by this package (no transformers, no
+# safetensors).  Llama-2-7B is cut to 2 of its 32 layers.
+LLAMA2_7B_HF = {
+    # meta-llama/Llama-2-7b-hf config.json (num_hidden_layers cut 32 -> 2;
+    # torch_dtype: the bf16 written here)
+    "architectures": ["LlamaForCausalLM"], "bos_token_id": 1,
+    "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 11008,
+    "max_position_embeddings": 4096, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 2,
+    "num_key_value_heads": 32, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000}
+GPT2_HF = {
+    # openai-community/gpt2 config.json
+    "activation_function": "gelu_new", "architectures": ["GPT2LMHeadModel"],
+    "attn_pdrop": 0.1, "bos_token_id": 50256, "embd_pdrop": 0.1,
+    "eos_token_id": 50256, "initializer_range": 0.02,
+    "layer_norm_epsilon": 1e-05, "model_type": "gpt2", "n_ctx": 1024,
+    "n_embd": 768, "n_head": 12, "n_layer": 12, "n_positions": 1024,
+    "resid_pdrop": 0.1, "summary_activation": None,
+    "summary_first_dropout": 0.1, "summary_proj_to_labels": True,
+    "summary_type": "cls_index", "summary_use_proj": True,
+    "task_specific_params": {"text-generation": {"do_sample": True,
+                                                 "max_length": 50}},
+    "vocab_size": 50257}
+# the port's Llama names -> HF's (nn.Linear is [out, in] in both)
+LLAMA_LAYER_NAMES = {
+    "input_norm.scale": "input_layernorm.weight",
+    "post_attn_norm.scale": "post_attention_layernorm.weight",
+    "attn.wq.weight": "self_attn.q_proj.weight",
+    "attn.wk.weight": "self_attn.k_proj.weight",
+    "attn.wv.weight": "self_attn.v_proj.weight",
+    "attn.wo.weight": "self_attn.o_proj.weight",
+    "mlp.w_gate.weight": "mlp.gate_proj.weight",
+    "mlp.w_up.weight": "mlp.up_proj.weight",
+    "mlp.w_down.weight": "mlp.down_proj.weight"}
+# the port's GPT-2 names -> HF's (Conv1D: [in, out], so transposed)
+GPT2_LAYER_NAMES = {"attn.qkv": "attn.c_attn", "attn.proj": "attn.c_proj",
+                    "mlp.fc_in": "mlp.c_fc", "mlp.fc_out": "mlp.c_proj",
+                    "ln_1": "ln_1", "ln_2": "ln_2"}
+
+
+def hf_name(family, name):
+    """(HF state dict name, transposed) of a port state_dict name."""
+    if family == "llama":
+        top = {"embed_tokens.weight": "model.embed_tokens.weight",
+               "norm.scale": "model.norm.weight",
+               "lm_head.weight": "lm_head.weight"}
+        if name in top:
+            return top[name], False
+        _, i, rest = name.split(".", 2)
+        return f"model.layers.{i}.{LLAMA_LAYER_NAMES[rest]}", False
+    if name in ("wte", "wpe"):
+        return f"transformer.{name}.weight", False
+    if name.startswith("ln_f."):
+        return f"transformer.{name}", False
+    _, i, rest = name.split(".", 2)
+    module, leaf = rest.rsplit(".", 1)
+    conv = leaf == "weight" and module != "ln_1" and module != "ln_2"
+    return f"transformer.h.{i}.{GPT2_LAYER_NAMES[module]}.{leaf}", conv
+
+
+def hf_weights(torch, family, cfg, seed, dtype):
+    """Seeded random HF state dict (host tensors, ``dtype``): normal 0.02
+    for the matrices, 1 + normal 0.02 for norm scales, normal 0.02 for
+    biases, drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape, base=0.0):
+        return (base + 0.02 * torch.randn(*shape, generator=g,
+                                          device="cuda")).to(dtype).cpu()
+    if family == "llama":
+        e, m, v = cfg["hidden_size"], cfg["intermediate_size"], \
+            cfg["vocab_size"]
+        sd = {"model.embed_tokens.weight": w(v, e),
+              "model.norm.weight": w(e, base=1.0),
+              "lm_head.weight": w(v, e)}
+        for i in range(cfg["num_hidden_layers"]):
+            h = f"model.layers.{i}."
+            sd[h + "input_layernorm.weight"] = w(e, base=1.0)
+            sd[h + "post_attention_layernorm.weight"] = w(e, base=1.0)
+            for n in "qkvo":
+                sd[h + f"self_attn.{n}_proj.weight"] = w(e, e)
+            sd[h + "mlp.gate_proj.weight"] = w(m, e)
+            sd[h + "mlp.up_proj.weight"] = w(m, e)
+            sd[h + "mlp.down_proj.weight"] = w(e, m)
+        return sd
+    e, v = cfg["n_embd"], cfg["vocab_size"]
+    sd = {"transformer.wte.weight": w(v, e),
+          "transformer.wpe.weight": w(cfg["n_positions"], e),
+          "transformer.ln_f.weight": w(e, base=1.0),
+          "transformer.ln_f.bias": w(e)}
+    for i in range(cfg["n_layer"]):
+        h = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[h + ln + ".weight"] = w(e, base=1.0)
+            sd[h + ln + ".bias"] = w(e)
+        for name, n_in, n_out in (("attn.c_attn", e, 3 * e),
+                                  ("attn.c_proj", e, e),
+                                  ("mlp.c_fc", e, 4 * e),
+                                  ("mlp.c_proj", 4 * e, e)):
+            sd[h + name + ".weight"] = w(n_in, n_out)       # Conv1D
+            sd[h + name + ".bias"] = w(n_out)
+    return sd
+
+
+def hf_ingest(torch, deepspeed_tpu_torch, dec, qk, seed, sched_kwargs,
+              smi, workdir):
+    """Phase 6h: two HF directories written here, ingested on the card
+    (``init_inference(<dir>)``), each weight equal to what was written,
+    graph + overlap serving token-exact against ``generate()``; the
+    Llama directory again with int8 weights over int8 KV, two runs
+    identical.  Returns the launch counts of the phase."""
+    from deepspeed_tpu_torch.module_inject.hf_weights import save_hf_dir
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    t_phase = time.monotonic()
+    dec.reset_launch_counts()
+    qk.reset_launch_counts()
+    for family, cfg, fmt, shards, dtype, label in (
+            ("llama", LLAMA2_7B_HF, "safetensors", 2, torch.bfloat16,
+             "llama2-7b width"),
+            ("gpt2", GPT2_HF, "bin", 1, torch.float32, "gpt2-small")):
+        path = os.path.join(workdir, family)
+        sd = hf_weights(torch, family, cfg, seed, dtype)
+        t0 = time.monotonic()
+        save_hf_dir(path, cfg, sd, fmt=fmt, shards=shards)
+        write_s = time.monotonic() - t0
+        files = sorted(f for f in os.listdir(path) if f != "config.json")
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in files)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        engine = deepspeed_tpu_torch.init_inference(
+            path, dtype="float32", kv_cache_dtype="float32",
+            max_out_tokens=512)
+        torch.cuda.synchronize()
+        ingest_s = time.monotonic() - t0
+        unequal = []
+        for name, t in engine.module.state_dict().items():
+            src, transposed = hf_name(family, name)
+            want = sd[src].t() if transposed else sd[src]
+            if not torch.equal(t.cpu(), want.float()):
+                unequal.append(name)
+        if unequal or len(engine.module.state_dict()) != len(sd):
+            fail(f"6h {label}: ingested weights differ from the files: "
+                 f"{unequal[:5]} ({len(engine.module.state_dict())} leaves "
+                 f"for {len(sd)} written)")
+        prompts, max_new = make_requests(seed, cfg["vocab_size"])
+        want = generated(engine, prompts, max_new)
+        got, sched, wall = serve(torch, engine, prompts, max_new,
+                                 sched_kwargs)
+        check_exact(engine, f"hf_ingest {label}", prompts, got, want)
+        line = {"phase": "hf_ingest", "model": label, "format": fmt,
+                "files": files, "bytes": nbytes, "file_dtype":
+                str(dtype).replace("torch.", ""),
+                "layers": cfg.get("num_hidden_layers", cfg.get("n_layer")),
+                "cut": "2 of 32 layers" if family == "llama" else None,
+                "write_s": round(write_s, 3), "ingest_s": round(ingest_s, 3),
+                "ingest_gb_per_s": nbytes / ingest_s / 1e9,
+                "weights_equal_files": True, "token_exact_vs_generate": True,
+                "serve_s": round(wall, 3), "captures": sched.captures,
+                "chained_horizons": sum(sched.chains), "gpu": smi}
+        del engine, sched
+        torch.cuda.empty_cache()
+        if family == "llama":
+            # int8 weights over int8 KV, from the same directory
+            engine = deepspeed_tpu_torch.init_inference(
+                path, dtype="int8", kv_cache_dtype="int8", max_out_tokens=512)
+            sched = ServingScheduler(engine, **sched_kwargs)
+            first, _ = run_mix(torch, sched, prompts, max_new)
+            again, wall8 = run_mix(torch, sched, prompts, max_new)
+            line.update(int8_two_runs_identical=again == first,
+                        int8_serve_s=round(wall8, 3),
+                        int8_agreement_with_fp32=agreement(again, got))
+            if again != first:
+                fail("6h llama int8 / int8: two runs differ")
+            del engine, sched
+            torch.cuda.empty_cache()
+        emit(line)
+        del sd
+    total = {**dec.launch_counts(), **qk.launch_counts()}
+    emit({"phase": "hf_ingest_done", "launches": total,
+          "phase_s": round(time.monotonic() - t_phase, 3)})
+    missing = [k for k in ("paged_decode_fwd", "paged_decode_quant_fwd",
+                           "int8_matmul_fwd", "decode_fwd")
+               if total.get(k, 0) <= 0]
+    if missing:
+        fail(f"phase 6h: {missing} never launched ({total})")
+    return total
+
+
+# ------------------------------------------------- checkpoints (8b)
+
+
+def train_checkpoints(torch, deepspeed_tpu_torch, fl, engine, config, data,
+                      seed, smi, workdir):
+    """Phase 8b on phase 8's bf16 engine: save, two more steps; a fresh
+    engine loads and takes the same two steps (losses, masters and
+    moments equal); an async save followed at once by a step leaves the
+    pre-step masters in the files; verify_checkpoint passes and a
+    flipped byte raises CheckpointCorrupt; init_inference(checkpoint=)
+    serves the saved weights with the training module's logits.
+    Returns the flash launch counts of the phase."""
+    from deepspeed_tpu_torch.checkpoint.engine import (CheckpointCorrupt,
+                                                       verify_checkpoint)
+    from deepspeed_tpu_torch.models.gpt2 import GPT2, gpt2_small
+    t_phase = time.monotonic()
+    fl.reset_launch_counts()
+    run = os.path.join(workdir, "run")
+
+    def state(e):
+        return [p.detach() for p in e.module.parameters()] + \
+            e.optimizer.mu + e.optimizer.nu
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    engine.save_checkpoint(run, tag="saved")
+    save_s = time.monotonic() - t0
+    tag = os.path.join(run, "saved")
+    nbytes = sum(os.path.getsize(os.path.join(tag, f))
+                 for f in os.listdir(tag))
+    want = [engine.train_batch(batches=[data[i % 2]]) for i in range(2)]
+    fresh = deepspeed_tpu_torch.initialize(
+        model=GPT2(gpt2_small(dtype="bfloat16")), config=config,
+        seed=seed + 5)[0]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fresh.load_checkpoint(run)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    # the saved weights served: an fp32 engine against an fp32 module of
+    # the loaded masters, a bf16 engine against the training module itself
+    ids = data[0]["input_ids"][:2]
+    twin = GPT2(gpt2_small(), device="cuda")
+    twin.load_state_dict(fresh.module.state_dict())
+    served = {}
+    for dtype, module, ref in (("float32", GPT2(gpt2_small()), twin),
+                               ("bfloat16",
+                                GPT2(gpt2_small(dtype="bfloat16")),
+                                fresh.module)):
+        inf = deepspeed_tpu_torch.init_inference(
+            module, checkpoint=run, dtype=dtype)
+        with torch.no_grad():
+            served[dtype] = bool(torch.equal(
+                inf.forward(ids.cpu().numpy()), ref(ids)))
+        del inf
+    del twin
+    got = [fresh.train_batch(batches=[data[i % 2]]) for i in range(2)]
+    resumed_equal = got == want and all(
+        torch.equal(a, b) for a, b in zip(state(engine), state(fresh)))
+    # async: the save returns once the state is on the host; the step
+    # after it must not reach the files
+    before = [p.detach().clone() for p in engine.module.parameters()]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    engine.save_checkpoint(run, tag="async", async_save=True)
+    async_return_s = time.monotonic() - t0
+    engine.train_batch(batches=[data[0]])
+    engine.wait_checkpoint()
+    async_total_s = time.monotonic() - t0
+    fresh.load_checkpoint(run, tag="async")
+    pre_step = all(torch.equal(a, b) for a, b in
+                   zip(fresh.module.parameters(), before)) and not all(
+        torch.equal(a, b) for a, b in
+        zip(fresh.module.parameters(), engine.module.parameters()))
+    ok, problems = verify_checkpoint(tag)
+    shard = [f for f in os.listdir(tag) if f.startswith("shards")][0]
+    with open(os.path.join(tag, shard), "r+b") as f:
+        f.seek(os.path.getsize(os.path.join(tag, shard)) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    bad_ok, bad_problems = verify_checkpoint(tag)
+    try:
+        fresh.load_checkpoint(run, tag="saved")
+        caught = False
+    except CheckpointCorrupt:
+        caught = True
+    counts = fl.launch_counts()
+    emit({"phase": "train_checkpoint", "model": "gpt2-small",
+          "dtype": "bfloat16 over fp32 masters", "checkpoint_bytes": nbytes,
+          "save_s": round(save_s, 3), "save_gb_per_s": nbytes / save_s / 1e9,
+          "async_return_s": round(async_return_s, 3),
+          "async_total_s": round(async_total_s, 3),
+          "load_s": round(load_s, 3), "load_gb_per_s": nbytes / load_s / 1e9,
+          "losses_after_save": want, "losses_after_resume": got,
+          "resume_equal": resumed_equal, "async_files_pre_step": pre_step,
+          "verify_ok": ok, "corrupt_verify_ok": bad_ok,
+          "corrupt_problems": bad_problems[:2],
+          "corruption_raises": caught, "served_logits_equal": served,
+          "launches": counts, "gpu": smi,
+          "phase_s": round(time.monotonic() - t_phase, 3)})
+    if not (resumed_equal and pre_step and ok and not bad_ok and caught
+            and all(served.values())):
+        fail(f"phase 8b: resume equal {resumed_equal}, async pre-step "
+             f"{pre_step}, verify {ok} / corrupt {bad_ok} {problems}, "
+             f"corruption raised {caught}, served equal {served}")
+    del fresh
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2339,12 +2668,26 @@ def main():
                                  args.seed, sched_kwargs)
     torch.cuda.empty_cache()
 
-    # ---- train phases: the fp32 oracle, then the bf16 main path
+    # ---- HF ingestion (6h): two directories written here, ingested and
+    # served, with the phase's own launch counts
+    with tempfile.TemporaryDirectory() as workdir:
+        h_counts = hf_ingest(torch, deepspeed_tpu_torch, dec, qk, args.seed,
+                             sched_kwargs, smi, workdir)
+    torch.cuda.empty_cache()
+
+    # ---- train phases: the fp32 oracle, then the bf16 main path, then
+    # checkpoints of that engine (8b, with the phase's own flash counts)
     train_oracle(torch, fl, deepspeed_tpu_torch, args.seed)
     torch.cuda.empty_cache()
     fl.reset_launch_counts()
-    train_bf16(torch, deepspeed_tpu_torch, args.seed)
+    _, engine8, config8, data8 = train_bf16(torch, deepspeed_tpu_torch,
+                                            args.seed)
     counts.update(fl.launch_counts())
+    with tempfile.TemporaryDirectory() as workdir:
+        c_counts = train_checkpoints(torch, deepspeed_tpu_torch, fl, engine8,
+                                     config8, data8, args.seed, smi, workdir)
+    del engine8, data8
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, key, source, replaces in (
@@ -2489,8 +2832,16 @@ def main():
             "library_ms": r["ms"]["sdpa_fwd"] if fwd else r["sdpa_bwd_ms"]})
         if not fwd:
             kernels[-1]["plain_and_library_cover"] = "dq, dk and dv"
+    # phases 6h (HF ingestion) and 8b (checkpoints): their own launches
+    for k in kernels:
+        if k["name"] in h_counts:
+            k["launches_6h"] = h_counts[k["name"]]
+        if k["name"] in c_counts:
+            k["launches_8b"] = c_counts[k["name"]]
     emit({"kernels": kernels})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    missing += [f"{k['name']} (8b)" for k in kernels
+                if k.get("launches_8b", 1) <= 0]
     if grouped_float <= 0:
         missing.append("paged_decode_fwd (group 8)")
     if missing:

@@ -53,13 +53,21 @@ def init_inference(model=None, config=None, **kwargs):
 
     ``model`` is a native :class:`~deepspeed_tpu_torch.models.llama.Llama`
     or :class:`~deepspeed_tpu_torch.models.gpt2.GPT2` (any variant of the
-    GPT-2 family's config; HF checkpoint ingestion is ROADMAP.md Queue
-    A8).  ``config`` is a
+    GPT-2 family's config), or an HF model instance or ``save_pretrained``
+    directory, which ``module_inject.from_hf`` ingests (its weights reach
+    the engine as ``params``, cast and placed leaf by leaf).  ``config``
+    is a
     :class:`~deepspeed_tpu_torch.inference.config.DeepSpeedInferenceConfig`,
     a dict or a JSON path; ``kwargs`` override its fields (``device``,
-    ``dtype``, ...).  ``params=`` loads a state dict."""
+    ``dtype``, ``checkpoint``, ...).  ``params=`` loads a state dict."""
+    import os
+
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
-    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.inference.engine import DTYPES, InferenceEngine
+    from deepspeed_tpu_torch.models.gpt2 import GPT2
+    from deepspeed_tpu_torch.models.llama import Llama
+    from deepspeed_tpu_torch.module_inject.replace_module import (from_hf,
+                                                                  is_hf_model)
 
     params = kwargs.pop("params", None)
     if isinstance(config, DeepSpeedInferenceConfig):
@@ -69,4 +77,12 @@ def init_inference(model=None, config=None, **kwargs):
         with open(config) as f:
             config = json.load(f)
     cfg = DeepSpeedInferenceConfig(**{**(config or {}), **kwargs})
+    if not isinstance(model, (Llama, GPT2)) and (
+            isinstance(model, (str, os.PathLike)) or is_hf_model(model)):
+        # HF ingestion (the JAX init_inference, deepspeed_tpu/__init__.py:
+        # 78-91): the module computes in the engine's dtype (bf16 under
+        # dtype="int8")
+        model, hf_params = from_hf(model, dtype=DTYPES[cfg.dtype])
+        if params is None:
+            params = hf_params
     return InferenceEngine(model, cfg, params=params)

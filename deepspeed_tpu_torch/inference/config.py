@@ -2,8 +2,9 @@
 
 The same pydantic surface for the fields this port runs — ``dtype``,
 ``quant``, ``kv_cache_dtype``, ``max_out_tokens``, ``paged_kernel``,
-``replace_with_kernel_inject``, ``enable_cuda_graph`` and
-``tensor_parallel`` (tp_size 1) — plus ``device``.  The two
+``replace_with_kernel_inject``, ``enable_cuda_graph``, ``checkpoint``,
+``checkpoint_engine`` and ``tensor_parallel`` (tp_size 1) — plus
+``device``.  The two
 quantization knobs are independent, as in the JAX config
 (``inference/config.py:86-107``): ``dtype="int8"`` means int8 WEIGHTS
 with bfloat16 compute (it sets ``quant.enabled``);
@@ -20,7 +21,7 @@ accepts and no JAX code reads (``min_out_tokens`` / ``min_tokens``,
 and ignored.
 """
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 from pydantic import BaseModel, ConfigDict, Field
 
@@ -31,8 +32,6 @@ UNPORTED_FIELDS = {
     "mesh": "Queue A10 (multi-GPU serving)",
     "mesh_dcn": "Queue A10 (multi-GPU serving)",
     "moe": "Queue A10 (MoE serving)",
-    "checkpoint": "Queue A8 (checkpoint and HF ingestion)",
-    "checkpoint_engine": "Queue A8 (checkpoint and HF ingestion)",
     "zero": "Queue A10 (ZeRO-Inference offload)",
 }
 
@@ -94,6 +93,11 @@ class DeepSpeedInferenceConfig(BaseModel):
     # (the counterpart of XLA always compiling); True demands graphs, so
     # a CPU engine is refused; False launches eagerly on the card too
     enable_cuda_graph: Optional[bool] = None
+    # a training checkpoint to serve: a path or {"checkpoint_dir": path}
+    # (InferenceEngine.load_checkpoint), read through checkpoint_engine
+    # ({"type": "npz"} or a "pkg.mod:Class" backend, checkpoint/backend.py)
+    checkpoint: Optional[Any] = None
+    checkpoint_engine: Dict[str, Any] = Field(default_factory=dict)
     # None -> CUDA (raises when no card is visible); "cpu" runs the
     # plain PyTorch versions of the kernels on the host
     device: Optional[Any] = None

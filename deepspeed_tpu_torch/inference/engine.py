@@ -11,7 +11,10 @@ scheduler drives — ``init_paged_cache`` (float or int8 / fp8 pools, per
 pool), ``prefill_into_slots``, ``decode_step``, ``decode_multi`` and
 ``verify_multi`` (speculative verification), their decoding-policy twins
 ``decode_multi_policy`` and ``verify_multi_policy``, and ``copy_page``
-(the prefix cache's copy-on-write).
+(the prefix cache's copy-on-write).  ``load_checkpoint`` (and the
+config's ``checkpoint``) serves a training checkpoint of either package;
+a module ingested from HF arrives on the ``meta`` device and is filled
+leaf by leaf.
 
 ``decode_multi`` is the JAX ``lax.scan`` over the horizon written as a
 Python loop whose carries (token, active mask, lengths, emitted count)
@@ -42,6 +45,7 @@ Greedy is an fp32 argmax whose ties go to the lowest token id
 
 import dataclasses
 import itertools
+import os
 import time
 import weakref
 
@@ -111,6 +115,33 @@ def _sample_tokens(logits, rng=None, do_sample=False, temperature=1.0,
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx[:, None])
         logits = torch.where(logits < cutoff, float("-inf"), logits)
     return prng.categorical(rng, logits)
+
+
+def _checkpoint_dir(ckpt):
+    """The config's ``checkpoint``: a path or ``{"checkpoint_dir": path}``
+    (the JAX engine's rule, ``inference/engine.py:180-192``), or None."""
+    if ckpt is None:
+        return None
+    path = ckpt.get("checkpoint_dir") or ckpt.get("base_dir") \
+        if isinstance(ckpt, dict) else ckpt
+    if not isinstance(path, (str, os.PathLike)):
+        raise ValueError(f"unusable checkpoint config: {ckpt!r} (expected "
+                         "a path or {'checkpoint_dir': path})")
+    return os.fspath(path)
+
+
+def _materialize(module, device, dtype):
+    """Give every parameter of a ``meta`` module uninitialised memory on
+    ``device``, floats in ``dtype``.  ``torch.empty`` rather than
+    ``Module.to_empty``: ``empty_like`` of a meta tensor imports
+    ``torch.fx``'s symbolic shapes, seconds the first time."""
+    for m in module.modules():
+        for name, p in m._parameters.items():
+            if p is not None and p.is_meta:
+                m._parameters[name] = torch.nn.Parameter(torch.empty(
+                    p.shape, device=device,
+                    dtype=dtype if p.is_floating_point() else p.dtype),
+                    requires_grad=p.requires_grad)
 
 
 def _torch_dtype(np_dtype):
@@ -236,9 +267,10 @@ class InferenceEngine:
     def __init__(self, model, config, params=None, seed=0):
         if not isinstance(model, (llama.Llama, gpt2.GPT2)):
             raise NotImplementedError(
-                "the PyTorch package serves a native Llama or GPT2 (the "
-                f"GPT-2 family) only, got {type(model).__name__}: see "
-                "ROADMAP.md Queue A8 (HF ingestion)")
+                f"the PyTorch package serves a native Llama or GPT2 (the "
+                f"GPT-2 family), got {type(model).__name__}: pass an HF "
+                "model or a save_pretrained directory to init_inference, "
+                "which ingests it (module_inject.from_hf)")
         self._config = config
         self.device = resolve_device(config.device)
         if config.paged_kernel == "force" and self.device.type != "cuda":
@@ -262,6 +294,16 @@ class InferenceEngine:
         # first serving dispatch
         self.kv_dtype = self._resolve_kv_dtype(config.kv_cache_dtype)
         self.seed = int(seed)
+        ckpt = _checkpoint_dir(config.checkpoint)
+        empty = any(p.is_meta for p in model.parameters())
+        if empty:
+            # an ingested module (module_inject.from_hf) holds no memory
+            # yet: allocate it on the device in the compute dtype, for
+            # the weights about to be loaded
+            if params is None and ckpt is None:
+                raise ValueError("a module on the meta device needs params= "
+                                 "or checkpoint= to fill it")
+            _materialize(model, self.device, self.dtype)
         # the engine's threefry key (``jax.random.PRNGKey(seed)``), split
         # per generate() / sample_from_logits() call as the JAX engine
         # splits its own
@@ -289,10 +331,14 @@ class InferenceEngine:
         # the module arrives with weights: cast them to the compute dtype
         # and quantize them if the config says so
         self._cast_params()
-        if config.quant.enabled:
+        if config.quant.enabled and not empty:
             self._postprocess_params()
-        if params is not None:
+        # a checkpoint to load replaces the params (the JAX engine's
+        # order, inference/engine.py:193-199)
+        if params is not None and ckpt is None:
             self.set_params(params)
+        if ckpt is not None:
+            self.load_checkpoint(ckpt)
 
     # ------------------------------------------------------------ params
     @torch.no_grad()
@@ -335,9 +381,66 @@ class InferenceEngine:
         keeps floats."""
         dequantize_tree(self.module)
         self._cast_params()
-        state = {k: torch.as_tensor(v) for k, v in state_dict.items()}
-        self.module.load_state_dict(state, strict=True)
+        self._load_leaves(state_dict)
         return self._postprocess_params(quantize=quantize)
+
+    @torch.no_grad()
+    def _load_leaves(self, state_dict):
+        """Copy ``state_dict`` into the module one leaf at a time: each is
+        read (a lazy mapping builds it here), cast to the parameter's
+        dtype and placed on its device before the next is read.  The
+        names must be exactly the module's, the shapes its shapes."""
+        own = self.module.state_dict()
+        missing = sorted(set(own) - set(state_dict))
+        extra = sorted(set(state_dict) - set(own))
+        if missing or extra:
+            raise RuntimeError(f"state_dict does not match the module: "
+                               f"missing={missing[:5]} unexpected="
+                               f"{extra[:5]}")
+        for name, dst in own.items():
+            src = torch.as_tensor(state_dict[name])
+            if tuple(src.shape) != tuple(dst.shape):
+                raise RuntimeError(f"size mismatch for {name}: "
+                                   f"{tuple(src.shape)} vs the module's "
+                                   f"{tuple(dst.shape)}")
+            if src.device != dst.device and src.dtype != dst.dtype:
+                # move the file's bytes as they are, cast on the device
+                src = src.to(dst.device)
+            dst.copy_(src)
+
+    @torch.no_grad()
+    def load_checkpoint(self, path, tag=None):
+        """Serve the weights of a training checkpoint written by either
+        package (the JAX ``load_checkpoint``, ``:512-580``): the ``.params``
+        leaves under their JAX names (``checkpoint/params.py``), read
+        through the config's ``checkpoint_engine``, placed leaf by leaf,
+        then quantized as :meth:`set_params` does.  ``tag`` defaults to
+        the directory's ``latest`` file, else ``path`` is the tag
+        directory itself."""
+        from deepspeed_tpu_torch.checkpoint.backend import \
+            get_checkpoint_engine
+        from deepspeed_tpu_torch.checkpoint.params import (PARAMS,
+                                                           jax_leaf_names)
+        backend = get_checkpoint_engine(self._config.checkpoint_engine)
+        path = os.fspath(path)
+        if tag is None:
+            latest = os.path.join(path, "latest")
+            if os.path.exists(latest):
+                with open(latest) as f:
+                    tag = f.read().strip()
+        full = os.path.join(path, str(tag)) if tag else path
+        dequantize_tree(self.module)
+        self._cast_params()
+        own = self.module.state_dict()
+        names = jax_leaf_names(self.module)
+        target = {leaf: tuple(own[n].shape)[::-1] if tr
+                  else tuple(own[n].shape) for n, (leaf, tr) in names.items()}
+        loaded = backend.load_subtree(full, target, prefix=PARAMS)
+        for name, (leaf, transposed) in names.items():
+            src = loaded.pop(leaf)
+            own[name].copy_(src.t() if transposed else src)
+        log_dist(f"inference checkpoint loaded from {full}", ranks=[0])
+        return self._postprocess_params()
 
     @torch.no_grad()
     def _postprocess_params(self, quantize=None):

@@ -517,6 +517,37 @@ def gpt2_params_from_jax(tree):
     return out
 
 
+def _nest(tree, path, value):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def gpt2_jax_path(name, ndim):
+    """(JAX param path, transposed) of a ``state_dict`` name: ``h.{i}``
+    -> ``h_{i}``, a Dense ``weight`` -> ``kernel`` (transposed), a
+    LayerNorm ``weight`` -> ``scale``."""
+    parts = name.split(".")
+    if parts[0] == "h":
+        parts = [f"h_{parts[1]}"] + parts[2:]
+    if len(parts) > 1 and parts[-1] == "weight":
+        parts[-1] = "kernel" if ndim == 2 else "scale"
+        return tuple(parts), ndim == 2
+    return tuple(parts), False
+
+
+def gpt2_params_to_jax(state_dict):
+    """The inverse of :func:`gpt2_params_from_jax`: this module's float
+    ``state_dict`` -> the JAX ``GPT2`` param tree (nested dicts named as
+    the flax tree, ``kernel`` [in, out] a transposed view of ``weight``).
+    The values are the given tensors (views, no copies)."""
+    tree = {}
+    for name, value in state_dict.items():
+        path, transposed = gpt2_jax_path(name, value.ndim)
+        _nest(tree, path, value.t() if transposed else value)
+    return tree
+
+
 def load_quantized_params_from_jax(module, tree):
     """Carry a JAX ``GPT2`` param tree whose ``kernel`` leaves may be
     quantized into ``module``, in place (``models/llama.py``'s function

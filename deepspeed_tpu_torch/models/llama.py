@@ -50,6 +50,9 @@ class LlamaConfig:
     # no-cache attention: "auto" (flash on a CUDA tensor, reference on a
     # CPU one) | "reference" | "flash" (models/llama.py:235-241)
     attn_impl: str = "auto"
+    # the head reads ``embed_tokens.weight`` (no ``lm_head``), as the JAX
+    # model's ``tie_embeddings`` (models/llama.py:43, :369)
+    tie_embeddings: bool = False
 
     def __post_init__(self):
         resolve_attn_impl(self.attn_impl, torch.device("cpu"))
@@ -155,12 +158,20 @@ class Llama(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
         self.cfg = cfg
+        # on the meta device (an HF module before the engine fills it)
+        # there is nothing to draw, and normal_ there first imports
+        # torch._dynamo, seconds of the first ingestion
+        empty = torch.empty(cfg.vocab_size, cfg.hidden_size, device="meta") \
+            if device is not None and torch.device(device).type == "meta" \
+            else None
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         device=device)
+                                         device=device, _weight=empty)
         self.layers = nn.ModuleList(LlamaBlock(cfg, device=device)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, device=device)
-        self.lm_head = QDense(cfg.hidden_size, cfg.vocab_size, device=device)
+        if not cfg.tie_embeddings:
+            self.lm_head = QDense(cfg.hidden_size, cfg.vocab_size,
+                                  device=device)
 
     def forward(self, input_ids, positions=None, cache=None):
         b, l = input_ids.shape
@@ -200,7 +211,12 @@ class Llama(nn.Module):
             # chunked prefill consumes only the boundary row
             n = cache["n_valid"]
             x = x[:, n - 1:n]
-        logits = self.lm_head(self.norm(x))
+        x = self.norm(x)
+        if self.cfg.tie_embeddings:
+            logits = torch.einsum("ble,ve->blv", x,
+                                  self.embed_tokens.weight.to(x.dtype))
+        else:
+            logits = self.lm_head(x)
         if paged:
             lens = cache["lengths"]
             if "slot" in cache:
@@ -220,13 +236,15 @@ def llama_params_from_jax(tree):
     """The JAX ``Llama`` param tree (nested dicts of numpy arrays, already
     unboxed) -> this module's ``state_dict``.  Each ``QDense`` ``kernel``
     [in, out] becomes a ``weight`` [out, in]; ``embed_tokens``, the
-    ``RMSNorm`` scales and ``lm_head`` carry over."""
+    ``RMSNorm`` scales and ``lm_head`` (absent from a tied tree) carry
+    over."""
     def t(a):
-        return torch.from_numpy(a.copy())
+        return torch.from_numpy(np.array(a, order="C"))
 
     out = {"embed_tokens.weight": t(tree["embed_tokens"]),
-           "norm.scale": t(tree["norm"]["scale"]),
-           "lm_head.weight": t(tree["lm_head"]["kernel"].T)}
+           "norm.scale": t(tree["norm"]["scale"])}
+    if "lm_head" in tree:
+        out["lm_head.weight"] = t(np.asarray(tree["lm_head"]["kernel"]).T)
     i = 0
     while f"layers_{i}" in tree:
         layer = tree[f"layers_{i}"]
@@ -241,9 +259,40 @@ def llama_params_from_jax(tree):
     return out
 
 
+def llama_jax_path(name, ndim):
+    """(JAX param path, transposed) of a ``state_dict`` name: ``layers.
+    {i}`` -> ``layers_{i}``, ``embed_tokens.weight`` -> ``embed_tokens``,
+    a ``QDense`` ``weight`` -> ``kernel`` (transposed)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        parts = [f"layers_{parts[1]}"] + parts[2:]
+    if parts == ["embed_tokens", "weight"]:
+        return ("embed_tokens",), False
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+        return tuple(parts), True
+    return tuple(parts), False
+
+
+def llama_params_to_jax(state_dict):
+    """The inverse of :func:`llama_params_from_jax`: this module's float
+    ``state_dict`` -> the JAX ``Llama`` param tree (no ``lm_head`` when
+    tied; ``kernel`` [in, out] a transposed view of ``weight``).  The
+    values are the given tensors (views, no copies)."""
+    tree = {}
+    for name, value in state_dict.items():
+        path, transposed = llama_jax_path(name, value.ndim)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value.t() if transposed else value
+    return tree
+
+
 def _dense_layers(tree):
-    """(port module name, JAX ``QDense`` param dict) of every projection."""
-    out = [("lm_head", tree["lm_head"])]
+    """(port module name, JAX ``QDense`` param dict) of every projection
+    (``lm_head`` unless the tree is tied)."""
+    out = [("lm_head", tree["lm_head"])] if "lm_head" in tree else []
     i = 0
     while f"layers_{i}" in tree:
         layer = tree[f"layers_{i}"]

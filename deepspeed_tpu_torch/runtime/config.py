@@ -6,7 +6,8 @@ The same JSON keys for the sections this port runs — the batch sizes
 ``_resolve_batch_parameters``, ``config.py:279``), ``optimizer``,
 ``scheduler``, ``bf16`` (or the older ``bfloat16``), ``gradient_clipping``,
 ``gradient_predivide_factor``, ``steps_per_print``,
-``zero_optimization.stage`` 0 or 1 and ``mesh.data`` 1.  The port trains
+``zero_optimization.stage`` 0 or 1, ``mesh.data`` 1, ``checkpoint`` and
+``checkpoint_engine``.  The port trains
 on one device: at world size 1, ZeRO stage 1 shards the optimizer state
 over one rank, the same math as stage 0 (as in the JAX engine on a
 1-device mesh).  A section the JAX package runs but the port does not
@@ -32,8 +33,6 @@ UNPORTED_SECTIONS = {
     "dataloader_drop_last": "Queue A15 (the dataloader)",
     "compression_training": "Queue A17 (compression and MoQ)",
     "eigenvalue": "Queue A17 (compression and MoQ)",
-    "checkpoint": "Queue A8 (checkpoints)",
-    "checkpoint_engine": "Queue A8 (checkpoints)",
     "zero_allow_untested_optimizer": "Queue A18 (the other optimizers)",
     "prescale_gradients": "Queue A12 (ZeRO over torch.distributed)",
     "sparse_gradients": "Queue A12 (ZeRO over torch.distributed)",
@@ -87,10 +86,14 @@ class Bf16Config(_Section):
 
 
 class ZeroConfig(BaseModel):
-    """``zero_optimization``: ``stage`` 0 or 1; every other key (stage 2/3,
-    offload, bucketing and overlap knobs) belongs to multi-GPU ZeRO."""
-    model_config = ConfigDict(extra="allow")
+    """``zero_optimization``: ``stage`` 0 or 1 and
+    ``stage3_gather_16bit_weights_on_model_save`` (a 16-bit weights file
+    beside each checkpoint); every other key (stage 2/3, offload,
+    bucketing and overlap knobs) belongs to multi-GPU ZeRO."""
+    model_config = ConfigDict(extra="allow", populate_by_name=True)
     stage: int = Field(0, ge=0, le=3)
+    gather_16bit_weights_on_model_save: bool = Field(
+        False, alias="stage3_gather_16bit_weights_on_model_save")
 
     def model_post_init(self, _ctx):
         if self.stage >= 2:
@@ -99,6 +102,39 @@ class ZeroConfig(BaseModel):
         for key, value in (self.model_extra or {}).items():
             if _turns_on(value):
                 raise _unported(f"zero_optimization.{key}", ZERO_ITEM)
+
+
+class CheckpointConfig(_Section):
+    """``checkpoint`` (the JAX ``CheckpointConfig``, ``runtime/config.py:
+    87-92``): ``async_save`` is the default of ``save_checkpoint``'s
+    ``async_save``; ``tag_validation`` has nothing to compare on one
+    process (every value is valid); universal checkpoints and the
+    multi-node write options are not ported."""
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write_pipeline: bool = False
+    async_save: bool = False
+
+    def model_post_init(self, _ctx):
+        if self.tag_validation.lower() not in ("ignore", "warn", "fail"):
+            raise ValueError(f"checkpoint.tag_validation "
+                             f"{self.tag_validation!r}: pick Ignore, Warn or "
+                             "Fail")
+        if self.load_universal:
+            raise _unported("checkpoint.load_universal",
+                            "Queue A10 (universal checkpoints)")
+        for key in ("use_node_local_storage", "parallel_write_pipeline"):
+            if getattr(self, key):
+                raise _unported(f"checkpoint.{key}", ZERO_ITEM)
+
+
+class CheckpointEngineConfig(_Section):
+    """``checkpoint_engine``: ``{"type": "npz"}`` or a
+    ``"package.module:Class"`` backend with its ``params``
+    (``checkpoint/backend.py``)."""
+    type: str = "npz"
+    params: dict = {}
 
 
 class MeshConfig(_Section):
@@ -145,6 +181,9 @@ class DeepSpeedConfig(BaseModel):
     steps_per_print: int = 10
     zero_optimization: ZeroConfig = Field(default_factory=ZeroConfig)
     mesh: MeshConfig = Field(default_factory=MeshConfig)
+    checkpoint: CheckpointConfig = Field(default_factory=CheckpointConfig)
+    checkpoint_engine: CheckpointEngineConfig = Field(
+        default_factory=CheckpointEngineConfig)
 
     @classmethod
     def load(cls, config):

@@ -19,21 +19,35 @@ step is the JAX engine's math, run eagerly:
 same math as K ``train_batch`` calls.  ``jit`` and ``lax.scan`` have no
 counterpart: PyTorch runs eagerly, so ``train_loop`` is a Python loop
 whose losses stay on the device until the caller reads them.
+
+``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
+package's checkpoint layout through the config's ``checkpoint_engine``
+(``checkpoint/``): the masters under their JAX names, the AdamW state
+under the port's own, the counters and the LR schedule in the client
+state, so a resumed run equals the uninterrupted one bit for bit.
 """
+
+import os
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.checkpoint.backend import get_checkpoint_engine
+from deepspeed_tpu_torch.checkpoint.engine import _write_npz_streaming
+from deepspeed_tpu_torch.checkpoint.params import PARAMS, jax_leaf_names
 from deepspeed_tpu_torch.models.gpt2 import (GPT2, gpt2_loss_fn,
                                              init_gpt2_params)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
                                                       get_lr_schedule)
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the port's optimizer state in a checkpoint (its own names, beside the
+# JAX ones of the masters)
+OPT_STATE = ".torch_opt_state"
 
 
 def _unported(what, item):
@@ -70,6 +84,9 @@ class DeepSpeedEngine:
         self.global_samples = 0
         self._pending = None
         self._last_metrics = {}
+        self.checkpoint_engine = get_checkpoint_engine(
+            self._config.checkpoint_engine.model_dump())
+        self._ckpt_writer = None
         self.init_params(seed)
 
     # ------------------------------------------------------------ config
@@ -233,8 +250,139 @@ class DeepSpeedEngine:
         return self.loss_fn(self.module, self._put_batch(batch))
 
     # -------------------------------------------------------- checkpoint
-    def save_checkpoint(self, save_dir, tag=None, client_state=None):
-        raise _unported("save_checkpoint", "Queue A8 (checkpoints)")
+    def _checkpoint_leaves(self, optimizer=True):
+        """``(state, transposed)``: the checkpoint's leaves by name — the
+        fp32 masters under their JAX names (``checkpoint/params.py``),
+        ``.step``, and with ``optimizer`` the AdamW moments and count under
+        ``.torch_opt_state`` by ``state_dict`` name — and the names of the
+        2-D masters written as ``[in, out]`` kernels."""
+        names = jax_leaf_names(self.module)
+        params = dict(self.module.named_parameters())
+        state, transposed = {}, set()
+        # the JAX tree's order: keys sorted at each level
+        for name, (leaf, tr) in sorted(names.items(), key=lambda kv: kv[1]):
+            state[PARAMS + leaf] = params[name]
+            if tr:
+                transposed.add(PARAMS + leaf)
+        state[".step"] = np.int32(self.global_steps)
+        if optimizer:
+            for key, moments in (("mu", self.optimizer.mu),
+                                 ("nu", self.optimizer.nu)):
+                for name, m in zip(params, moments):
+                    state[f"{OPT_STATE}[{key!r}][{name!r}]"] = m
+            state[f"{OPT_STATE}['count']"] = np.int64(self.optimizer.count)
+        return state, transposed
 
-    def load_checkpoint(self, load_dir, tag=None, **kwargs):
-        raise _unported("load_checkpoint", "Queue A8 (checkpoints)")
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, async_save=None):
+        """``<save_dir>/<tag>/`` in the JAX layout (``checkpoint/engine.py``)
+        and the ``latest`` file (the JAX ``save_checkpoint``,
+        ``runtime/engine.py:2260-2331``).  The state is copied to host
+        memory before this returns, so the next step cannot change what is
+        written; with ``async_save`` (default: the config's
+        ``checkpoint.async_save``) the write runs on a thread —
+        :meth:`wait_checkpoint` joins it.  ``client_state`` (JSON) comes
+        back from :meth:`load_checkpoint`."""
+        if async_save is None:
+            async_save = self._config.checkpoint.async_save
+        tag = tag or f"global_step{self.global_steps}"
+        path = os.path.join(save_dir, str(tag))
+        client = dict(client_state or {})
+        client.update({
+            "global_steps": self.global_steps,
+            "micro_steps": self.micro_steps,
+            "global_samples": self.global_samples,
+            "lr_scheduler": self.lr_scheduler.state_dict()
+            if isinstance(self.lr_scheduler, LRScheduler) else None})
+        self.wait_checkpoint()
+        state, transposed = self._checkpoint_leaves()
+
+        def finalize():
+            if self._config.zero_optimization \
+                    .gather_16bit_weights_on_model_save:
+                self.checkpoint_engine.consolidate_16bit(
+                    path, "weights_16bit.npz", dtype=np.float16)
+            if save_latest:
+                with open(os.path.join(save_dir, "latest"), "w") as f:
+                    f.write(str(tag))
+            self.checkpoint_engine.commit(tag)
+
+        self.checkpoint_engine.create(tag)
+        self._ckpt_writer = self.checkpoint_engine.save(
+            path, state, client, async_write=async_save, on_done=finalize,
+            transposed=transposed)
+        log_dist(f"saved checkpoint {path}", ranks=[0])
+        return path
+
+    def wait_checkpoint(self):
+        """Join any in-flight async checkpoint write."""
+        writer, self._ckpt_writer = self._ckpt_writer, None
+        if writer is not None:
+            writer.wait()
+
+    @torch.no_grad()
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True):
+        """Restore a checkpoint of :meth:`save_checkpoint` (the JAX
+        ``load_checkpoint``, ``:2340-2410``): the fp32 masters, and the
+        optimizer state, the step counters and the LR schedule.  ``tag``
+        defaults to ``latest`` (none there: nothing is loaded and ``(None,
+        {})`` returns).  A JAX-written checkpoint has the masters but not
+        the port's optimizer state: load it with
+        ``load_optimizer_states=False``.  Returns ``(path,
+        client_state)``."""
+        self.wait_checkpoint()
+        if tag is None:
+            latest = os.path.join(load_dir, "latest")
+            if not os.path.exists(latest):
+                logger.warning(f"no 'latest' file in {load_dir}; nothing "
+                               "loaded")
+                return None, {}
+            with open(latest) as f:
+                tag = f.read().strip()
+        path = os.path.join(load_dir, str(tag))
+        state, transposed = self._checkpoint_leaves(load_optimizer_states)
+        state.pop(".step")
+        target = {name: tuple(t.shape)[::-1] if name in transposed
+                  else tuple(np.shape(t)) for name, t in state.items()}
+        try:
+            loaded, client = self.checkpoint_engine.load(path, target)
+        except KeyError as e:
+            if load_optimizer_states and OPT_STATE in str(e):
+                raise KeyError(f"{e.args[0]}: the checkpoint holds no port "
+                               "optimizer state (a JAX-written one?); load "
+                               "it with load_optimizer_states=False") from e
+            raise
+        for name, dst in state.items():
+            src = loaded.pop(name)
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src.t() if name in transposed else src)
+            else:
+                self.optimizer.count = int(src)
+        self.global_steps = client.get("global_steps", 0)
+        self.micro_steps = client.get("micro_steps", 0)
+        self.global_samples = client.get("global_samples", 0)
+        if load_lr_scheduler_states and client.get("lr_scheduler") and \
+                isinstance(self.lr_scheduler, LRScheduler):
+            self.lr_scheduler.load_state_dict(client["lr_scheduler"])
+        log_dist(f"loaded checkpoint {path}", ranks=[0])
+        return path, client
+
+    def save_16bit_model(self, save_dir, save_filename="weights_16bit.npz"):
+        """The fp32 masters as float16 under their JAX names in one
+        ``.npz``: the file ``consolidate(tag_dir, out, dtype=np.float16)``
+        writes from a checkpoint of this step (and the one
+        ``gather_16bit_weights_on_model_save`` leaves beside each save).
+        Returns its path."""
+        os.makedirs(save_dir, exist_ok=True)
+        out = os.path.join(save_dir, save_filename)
+        state, transposed = self._checkpoint_leaves(optimizer=False)
+        state.pop(".step")
+
+        def leaves():
+            for name, t in state.items():
+                a = t.detach().to("cpu", torch.float32).numpy()
+                yield name, (a.T if name in transposed else a).astype(
+                    np.float16)
+        _write_npz_streaming(out, leaves())
+        return out

@@ -301,7 +301,7 @@ def test_alibi_over_pools_takes_the_gathered_dense_route():
 def test_engine_serves_gpt2_and_refuses_other_modules():
     """init_params draws the flax initializers of the GPT-2 family;
     page bytes count one kv head per query head; a module of another
-    family raises naming the HF-ingestion item."""
+    family raises naming the HF-ingestion route."""
     cfg = tgpt2.gpt2_tiny(**VARIANTS["gptj"])
     e1, e2 = (deepspeed_tpu_torch.init_inference(
         tgpt2.GPT2(cfg), dtype="float32", device="cpu").init_params(3)
@@ -315,6 +315,6 @@ def test_engine_serves_gpt2_and_refuses_other_modules():
     assert abs(float(m.lm_head.weight.std()) - 0.02) < 3e-3
     # K and V, 2 layers, 8 rows, 4 heads of 16, bf16 (the default)
     assert e1.kv_page_bytes(8) == 2 * 2 * 8 * 4 * 16 * 2
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="from_hf"):
         deepspeed_tpu_torch.init_inference(torch.nn.Linear(2, 2),
                                            device="cpu")

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax nor anything of
-``deepspeed_tpu``, its entry points refuse to drop to the CPU silently,
+``deepspeed_tpu`` (nor ``transformers`` or ``safetensors``, which the
+card's machine may lack), its entry points refuse to drop to the CPU silently,
 and its kernel builder refuses to run without a card."""
 
 import ast
@@ -27,18 +28,20 @@ def _port_sources():
 
 
 def _forbidden(name):
-    return name == "jax" or name.startswith("jax.") or \
-        name == "deepspeed_tpu" or name.startswith("deepspeed_tpu.")
+    return name.split(".")[0] in ("jax", "deepspeed_tpu", "transformers",
+                                  "safetensors")
 
 
 def test_importing_every_module_loads_no_jax():
+    """Nor ``transformers`` or ``safetensors``: HF ingestion and the
+    checkpoints read their formats themselves."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import deepspeed_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-        " or k == 'deepspeed_tpu' or k.startswith('deepspeed_tpu.')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax',"
+        " 'deepspeed_tpu', 'transformers', 'safetensors')]\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules"
         " if k.startswith('deepspeed_tpu_torch')]))\n")
@@ -62,6 +65,7 @@ def test_no_source_imports_jax_or_the_jax_package():
             assert not bad, f"{path}:{node.lineno} imports {bad}"
     assert not _forbidden("deepspeed_tpu_torch.models")   # the scan's own
     assert _forbidden("deepspeed_tpu.serving")            # rule, checked
+    assert _forbidden("safetensors.torch") and _forbidden("transformers")
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
