@@ -10,13 +10,16 @@ Phases, each of which must pass (any failure exits nonzero):
   2. build every CUDA kernel of the serve and train paths from the
      sources in the checkout (one nvcc per source, all started together,
      sm_90a; into build/), printing ptxas's registers and spills for
-     each kernel instantiation; no instantiation of the bf16 flash
-     forward (flash_fwd_wgmma_kernel) or of the bf16 backward pair
+     each kernel instantiation (nvcc's log is kept beside each library,
+     so a library built earlier reports the same lines); no
+     instantiation of the bf16 or fp16 flash forward
+     (flash_fwd_wgmma_kernel) or of the bf16 or fp16 backward pair
      (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel; dense and
      sparse walk, d 32 / 64 / 128), of the decode kernel (paged and dense
-     walk) or of int8_matmul_kernel may spill;
+     walk) or of int8_matmul_kernel may spill, and each has its fp16
+     instantiations;
   3. decode kernel phase: each decode kernel against its plain PyTorch
-     version on the card, fp32 and bf16, at the serving path's shapes
+     version on the card, fp32, bf16 and fp16, at the serving path's shapes
      (Llama-2-7B heads, a 128-bucketed dense cache, GQA at Llama-2-70B
      head widths, and the dense cache at Falcon-7B's MQA heads, 71 over
      1, d 64: five 16-head tiles; the dense cache also at 8 x 1024 and at
@@ -30,16 +33,16 @@ Phases, each of which must pass (any failure exits nonzero):
      spills of the paged kernel instantiations;
   3b. int8_matmul kernel phase: int8_matmul_fwd against its plain
      version at the Llama-2-7B projection shapes, m = 4 (decode), 64
-     (prefill chunk) and 1, group 64, bf16 and fp32, with its time, the
+     (prefill chunk) and 1, group 64, bf16, fp16 and fp32, with its time, the
      plain version's, the bound, and F.linear on the FLOAT weight of the
      same shape (the layer this one replaces; no single PyTorch call
      computes the quantized function), each with its k split (the
      blocks of a cluster); fp32 batch invariance: a row of an m = 1 or
      m = 4 call equals that row of an m = 64 call bit for bit (a gate),
-     and the same check in bf16 (printed);
+     and the same check in bf16 and fp16 (printed);
   4. flash kernel phase: flash_fwd and the flash_bwd_dq / flash_bwd_dkv
-     pair against their plain versions (o, lse, dq, dk, dv), fp32 and
-     bf16, at (a) GPT-2 small training, b 8 h 12 l 1024 d 64 causal,
+     pair against their plain versions (o, lse, dq, dk, dv), fp32, bf16
+     and fp16, at (a) GPT-2 small training, b 8 h 12 l 1024 d 64 causal,
      (b) b 1 l 4096, (c) q 512 / k 1024 causal, (d) non-causal l 1024,
      (e) Llama-2-7B heads, b 1 h 32 l 2048 d 128; each kernel's time,
      the plain versions', SDPA's forward and forward+backward, and the
@@ -49,7 +52,8 @@ Phases, each of which must pass (any failure exits nonzero):
      its ratio to SDPA's backward;
   4b. block-sparse kernel phase: sparse_fwd and the sparse_bwd_dq /
      sparse_bwd_dkv pair against their plain versions (o, lse, dq, dk,
-     dv), bf16 and fp32, at b 1 l 4096 h 12 d 64 over six layouts:
+     dv), bf16, fp16 and fp32, at b 1 l 4096 h 12 d 64 over six layouts
+     (the fp16 pass counts its own launches):
      BigBird and BSLongformer bidirectional (block 128), Fixed
      unidirectional with a layout per head (4 global patterns), Variable
      bidirectional with random blocks, Fixed unidirectional at block 32
@@ -173,6 +177,21 @@ Phases, each of which must pass (any failure exits nonzero):
      two runs identical; ingest seconds and GB/s; paged_decode_fwd,
      paged_decode_quant_fwd, int8_matmul_fwd and decode_fwd must each
      launch in the phase;
+  6i. fp16 serving at full width: Llama-2-70B heads at 2 layers over
+     fp16 and int8 pools (rows 2 and 2q at fp16); Llama-2-7B, 32 layers,
+     phase 5's seeded weights (drawn in fp32, cast to fp16), through
+     init_inference(dtype="float16", kv_cache_dtype="float16") and graph
+     + overlap serving of phase 5's requests, twice on one scheduler:
+     the two runs identical, every logit finite (a non-finite one names
+     the first layer that overflowed), a 200-token teacher-forced
+     prefill's boundary logits within FP16_LOGIT_DELTA_CEILING of the
+     fp32 engine's, agreement with fp16 generate() printed; then fp16
+     compute over int8 weights and int8 KV (two runs identical);
+     OPT-125m (full) and BLOOM-560m (2 layers, ALiBi through decode_fwd
+     alone) in fp16, two runs identical; a "torch_dtype": "float16"
+     safetensors directory (Llama-2-7B width, 2 layers) through
+     init_inference(<dir>, dtype="float16"), its weights equal to the
+     files;
   7. train phase, fp32 oracle: GPT-2 small width at 2 layers, batch 2 x
      1024, one step through the flash kernels and one through the plain
      reference attention from the same weights; the loss, the global
@@ -192,6 +211,16 @@ Phases, each of which must pass (any failure exits nonzero):
      logits equal to an fp32 module of them and, in bf16, to the
      training module's own; save / async-return / load seconds and
      bytes;
+  8f. fp16 training: phase 8's GPT-2 small with "fp16": {"enabled":
+     true} (dynamic, initial_scale_power 16), 3 warm-up and 10 timed
+     steps, losses finite and falling, loss scale, skipped steps,
+     tokens/s, ms/step, peak memory and MFU beside phase 8's bf16; a
+     checkpoint save / load round trip (losses, masters, moments, count
+     and scaler bit-equal to the uninterrupted run); then a run from
+     initial_scale_power 32: its first steps overflow, each skipped
+     step leaves masters, moments and count bit-equal, the scale follows
+     the reference rule (hysteresis 2, then halving) and the run then
+     trains;
   9. the launch count of every kernel over its path, CUDA-graph replays
      included (decode kernels over
      phases 5-6e, the quantized paged kernel and int8_matmul_fwd over
@@ -199,7 +228,10 @@ Phases, each of which must pass (any failure exits nonzero):
      over phase 8, block-sparse kernels over phase 4c; each must be > 0;
      ``launches_6f`` counts phase 6f's, ``launches_6g`` phase 6g's,
      ``launches_6h`` phase 6h's, ``launches_8b`` phase 8b's; the flash
-     kernels must launch in 8b).
+     kernels must launch in 8b); each kernel's fp16 numbers beside its
+     bf16 ones and ``launches_fp16``, its float16 launches (rows 1-3q and
+     12 in 6i, the flash kernels in 8f, the block-sparse kernels in 4b's
+     fp16 pass), each > 0.
 
 Each line of output is one JSON object; the last is
 {"ok": true, "device": {...}}.  TF32 is off for matmuls and cuDNN so
@@ -216,9 +248,14 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-BF16_FLOPS = 989e12                # dense tensor-core peak
+BF16_FLOPS = 989e12                # dense tensor-core peak, bf16 and fp16
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
-TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# kernel vs plain version, max abs error (int8_matmul: relative above
+# magnitude 1).  fp16 keeps 10 mantissa bits against bf16's 7, so one
+# rounding of a value near 1 is 2^-11 against 2^-8: the same number of
+# roundings (P, the operands of each product, the output) that bf16's
+# 3e-2 allows come to 3e-2 / 8 = 3.75e-3 in fp16, taken as 4e-3.
+TOL = {"float32": 1e-4, "bfloat16": 3e-2, "float16": 4e-3}
 # largest |logit(float32 pools) - logit(int8 pools)| over the boundary
 # rows of a teacher-forced 200-token prefill, bf16 compute over int8
 # weights, seeded random Llama-2-7B weights: the first measurement on the
@@ -228,6 +265,13 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # ceiling is 2.4 times that: a row scaled wrongly moves logits by their
 # whole magnitude.
 KV_LOGIT_DELTA_CEILING = 1.5
+# largest |logit(fp16 engine, fp16 pools) - logit(fp32 engine, fp32
+# pools)| over the boundary rows of the same teacher-forced 200-token
+# prefill, seeded random Llama-2-7B weights (phase 6i): the first reading
+# on the card was 0.0528 at a largest |logit| of 5.89 (PERF.md).  The
+# ceiling is 2.4 times that, as for KV_LOGIT_DELTA_CEILING: a kernel that
+# is wrong in fp16 moves logits by their whole magnitude.
+FP16_LOGIT_DELTA_CEILING = 0.13
 
 
 def emit(obj):
@@ -240,7 +284,8 @@ def fail(msg):
 
 
 def bound_ms(n_bytes, n_flops, dtype_name):
-    peak = BF16_FLOPS if dtype_name == "bfloat16" else FP32_FLOPS
+    peak = BF16_FLOPS if dtype_name in ("bfloat16", "float16") \
+        else FP32_FLOPS
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
@@ -1638,42 +1683,51 @@ def live_pool_check(torch, dec, sched, dtype, heads, label, seed,
     return err
 
 
+def teacher_forced_logits(engine, seq, kv_dtype, sched_kwargs):
+    """``seq`` teacher-forced through chunked prefill into fresh
+    ``kv_dtype`` pools: the boundary logits of each chunk, as fp32."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.serving import PagedKVManager
+    chunk, ps = sched_kwargs["prefill_chunk"], sched_kwargs["page_size"]
+    pools = engine.init_paged_cache(sched_kwargs["num_pages"], ps,
+                                    kv_dtype=kv_dtype)
+    kvm = PagedKVManager(sched_kwargs["num_pages"], ps,
+                         sched_kwargs["num_slots"],
+                         sched_kwargs["max_pages_per_slot"])
+    if not kvm.ensure_capacity(0, len(seq)):
+        fail("teacher-forced run: the pool cannot hold the sequence")
+    lengths = np.zeros(sched_kwargs["num_slots"], np.int32)
+    rows = []
+    for c0 in range(0, len(seq), chunk):
+        n = min(chunk, len(seq) - c0)
+        ids = np.zeros((1, chunk), np.int32)
+        ids[0, :n] = seq[c0:c0 + n]
+        logits, pools = engine.prefill_into_slots(
+            ids, 0, n, kvm.table, lengths, pools)
+        lengths[0] += n
+        rows.append(logits.float())
+    return rows
+
+
+def logit_deltas(rows, ref):
+    """(largest |difference| of each boundary row, the share of rows whose
+    argmax agrees, the largest |logit| of ``ref``)."""
+    deltas = [(a - b).abs().max().item() for a, b in zip(rows, ref)]
+    same = [int(a.argmax()) == int(b.argmax()) for a, b in zip(rows, ref)]
+    return deltas, sum(same) / len(same), \
+        max(b.abs().max().item() for b in ref)
+
+
 def teacher_forced_delta(engine, seq, sched_kwargs):
     """The same token stream teacher-forced through chunked prefill into
     float32 pools and into int8 pools: the largest difference of any
     boundary logit (the oracle of the JAX package's
     test_int8_teacher_forced_logit_delta_pinned), and the share of
     chunks whose argmax agrees."""
-    import numpy as np
-
-    from deepspeed_tpu_torch.serving import PagedKVManager
-    chunk, ps = sched_kwargs["prefill_chunk"], sched_kwargs["page_size"]
-    runs = {}
-    for kvd in ("float32", "int8"):
-        pools = engine.init_paged_cache(sched_kwargs["num_pages"], ps,
-                                        kv_dtype=kvd)
-        kvm = PagedKVManager(sched_kwargs["num_pages"], ps,
-                             sched_kwargs["num_slots"],
-                             sched_kwargs["max_pages_per_slot"])
-        if not kvm.ensure_capacity(0, len(seq)):
-            fail("teacher-forced run: the pool cannot hold the sequence")
-        lengths = np.zeros(sched_kwargs["num_slots"], np.int32)
-        rows = []
-        for c0 in range(0, len(seq), chunk):
-            n = min(chunk, len(seq) - c0)
-            ids = np.zeros((1, chunk), np.int32)
-            ids[0, :n] = seq[c0:c0 + n]
-            logits, pools = engine.prefill_into_slots(
-                ids, 0, n, kvm.table, lengths, pools)
-            lengths[0] += n
-            rows.append(logits.float())
-        runs[kvd] = rows
-    deltas = [(a - b).abs().max().item()
-              for a, b in zip(runs["float32"], runs["int8"])]
-    same = [int(a.argmax()) == int(b.argmax())
-            for a, b in zip(runs["float32"], runs["int8"])]
-    logit_scale = max(a.abs().max().item() for a in runs["float32"])
-    return deltas, sum(same) / len(same), logit_scale
+    return logit_deltas(
+        teacher_forced_logits(engine, seq, "int8", sched_kwargs),
+        teacher_forced_logits(engine, seq, "float32", sched_kwargs))
 
 
 def serve_quantized(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
@@ -1826,18 +1880,19 @@ def serve_int8_fp32(torch, deepspeed_tpu_torch, dec, model, prompts, max_new,
     return got, counts
 
 
-def serve_grouped(torch, deepspeed_tpu_torch, dec, seed):
+def serve_grouped(torch, deepspeed_tpu_torch, dec, seed, dtype="bfloat16"):
     """Phase 6d: Llama-2-70B widths (64 query heads over 8 kv heads) at 2
-    layers, bf16: a few short requests over bfloat16 pools and over int8
-    pools, so paged_decode_fwd and paged_decode_quant_fwd launch at group
-    8 on a serving path.  Returns the launch counts of the two runs."""
+    layers, ``dtype`` compute (bf16; fp16 in phase 6i): a few short
+    requests over pools of that dtype and over int8 pools, so
+    paged_decode_fwd and paged_decode_quant_fwd launch at group 8 on a
+    serving path.  Returns the launch counts of the two runs."""
     import numpy as np
 
     from deepspeed_tpu_torch.models.llama import Llama, llama2_70b
     cfg = llama2_70b(num_layers=2)
     engine = deepspeed_tpu_torch.init_inference(
-        Llama(cfg, device="cuda"), dtype="bfloat16",
-        kv_cache_dtype="bfloat16", max_out_tokens=256).init_params(seed)
+        Llama(cfg, device="cuda"), dtype=dtype, kv_cache_dtype=dtype,
+        max_out_tokens=256).init_params(seed)
     rng = np.random.default_rng(seed + 3)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (12, 70, 33)]
@@ -1846,17 +1901,17 @@ def serve_grouped(torch, deepspeed_tpu_torch, dec, seed):
                         max_pages_per_slot=8, prefill_chunk=32,
                         decode_horizon_steps=4)
     out = {}
-    for kv in ("bfloat16", "int8"):
+    for kv in (dtype, "int8"):
         dec.reset_launch_counts()
         got, sched, wall = serve(torch, engine, prompts, max_new,
                                  dict(sched_kwargs, kv_dtype=kv))
         counts = dec.launch_counts()
         s = sched.summary()
-        err = live_pool_check(torch, dec, sched, torch.bfloat16,
+        err = live_pool_check(torch, dec, sched, getattr(torch, dtype),
                               cfg.num_heads, f"grouped {kv} KV", seed + 11,
                               positions=(0, 7, 60, 100))
         emit({"phase": "serve_grouped", "model": "llama2-70b widths",
-              "layers": 2, "heads": cfg.num_heads,
+              "dtype": dtype, "layers": 2, "heads": cfg.num_heads,
               "kv_heads": cfg.num_kv_heads, "kv_dtype": s["kv_dtype"],
               "requests": len(prompts), "tokens": s["tokens_emitted"],
               "serve_s": round(wall, 3),
@@ -1870,7 +1925,7 @@ def serve_grouped(torch, deepspeed_tpu_torch, dec, seed):
             fail(f"grouped serve over {kv} pools: kv_dtype {s['kv_dtype']}, "
                  f"{[len(g) for g in got]} tokens")
         out[kv] = counts
-    return out["bfloat16"]["paged_decode_fwd"], \
+    return out[dtype]["paged_decode_fwd"], \
         out["int8"]["paged_decode_quant_fwd"]
 
 
@@ -1940,7 +1995,7 @@ def gpt2_family_kernels(torch, dec):
 
 def family_engine(torch, deepspeed_tpu_torch, name, seed, **kw):
     from deepspeed_tpu_torch.models.gpt2 import GPT2, GPTConfig
-    model = GPT2(GPTConfig(**GPT2_FAMILY[name], **kw.pop("cfg", {})),
+    model = GPT2(GPTConfig(**{**GPT2_FAMILY[name], **kw.pop("cfg", {})}),
                  device="cuda")
     engine = deepspeed_tpu_torch.init_inference(
         model, max_out_tokens=512, **{"dtype": "float32",
@@ -2401,6 +2456,340 @@ def train_checkpoints(torch, deepspeed_tpu_torch, fl, engine, config, data,
     return counts
 
 
+# ---------------------------------------------------- fp16 serving (6i)
+
+
+def first_nonfinite_layer(torch, engine, ids):
+    """The index of the first decoder layer whose output holds a
+    non-finite value in a no-cache forward of ``ids`` (None: all are
+    finite), and whether the logits are."""
+    blocks = getattr(engine.module, "layers", None) or engine.module.h
+    bad = []
+
+    def hook(i):
+        def fn(_mod, _inp, out):
+            x = out[0] if isinstance(out, tuple) else out
+            if not bad and not bool(torch.isfinite(x).all()):
+                bad.append(i)
+        return fn
+    handles = [b.register_forward_hook(hook(i)) for i, b in enumerate(blocks)]
+    logits = engine.forward(ids)
+    for h in handles:
+        h.remove()
+    return (bad[0] if bad else None), bool(torch.isfinite(logits).all())
+
+
+def serve_twice(torch, engine, prompts, max_new, sched_kwargs):
+    """Two runs of the requests on one graph + overlap scheduler: (first
+    tokens, second tokens, the second run's numbers)."""
+    from deepspeed_tpu_torch.serving import ServingScheduler
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+    sched = ServingScheduler(engine, **sched_kwargs)
+    chains = count_chains(sched)
+    first, _ = run_mix(torch, sched, prompts, max_new)
+    sched.metrics = ServingMetrics()
+    steps0 = sched.step_idx
+    again, wall = run_mix(torch, sched, prompts, max_new)
+    return first, again, dict(
+        serve_numbers(sched.metrics.summary(wall), wall,
+                      sched.step_idx - steps0),
+        chained_horizons=sum(chains), kv_dtype=sched.summary()["kv_dtype"])
+
+
+def serve_fp16(torch, deepspeed_tpu_torch, dec, qk, seed, prompts, max_new,
+               sched_kwargs, smi, workdir):
+    """Phase 6i: float16 on the serving path at full width.  Returns the
+    phase's float16 launch counts and those of the group-8 runs (paged
+    float, paged quantized)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models.llama import Llama, llama2_7b
+    from deepspeed_tpu_torch.module_inject.hf_weights import save_hf_dir
+    f16 = torch.float16
+    t_phase = time.monotonic()
+    # Llama-2-70B heads at 2 layers over fp16 and int8 pools: rows 2 and
+    # 2q (group 8) at fp16
+    grouped = serve_grouped(torch, deepspeed_tpu_torch, dec, seed,
+                            dtype="float16")
+    torch.cuda.empty_cache()
+    dec.reset_launch_counts()
+    qk.reset_launch_counts()
+    # (a) Llama-2-7B, 32 layers, phase 5's weights: drawn in fp32 by the
+    # same seed, then the module cast to fp16 in place
+    model = Llama(llama2_7b(), device="cuda")
+    e32 = deepspeed_tpu_torch.init_inference(
+        model, dtype="float32", kv_cache_dtype="float32", max_out_tokens=512)
+    e32.init_params(seed)
+    seq = np.random.default_rng(seed + 8).integers(
+        0, model.cfg.vocab_size, 200).astype(np.int32)
+    ref = teacher_forced_logits(e32, seq, "float32", sched_kwargs)
+    del e32
+    engine = deepspeed_tpu_torch.init_inference(
+        model, dtype="float16", kv_cache_dtype="float16", max_out_tokens=512)
+    torch.cuda.empty_cache()
+    layer, finite = first_nonfinite_layer(torch, engine, prompts[1][None])
+    rows = teacher_forced_logits(engine, seq, "float16", sched_kwargs)
+    finite = finite and all(bool(torch.isfinite(r).all()) for r in rows)
+    if layer is not None or not finite:
+        fail(f"6i: seeded Llama-2-7B overflows float16: first non-finite "
+             f"layer {layer}, logits finite {finite}")
+    deltas, argmax_agree, scale = logit_deltas(rows, ref)
+    t0 = time.monotonic()
+    want = generated(engine, prompts, max_new)
+    gen_s = time.monotonic() - t0
+    first, again, numbers = serve_twice(torch, engine, prompts, max_new,
+                                        sched_kwargs)
+    counts16 = {**dec.launch_counts(f16), **qk.launch_counts(f16)}
+    emit({"phase": "serve_fp16", "model": "llama2-7b", "layers": 32,
+          "dtype": "float16", **numbers, "generate_s": round(gen_s, 3),
+          "two_runs_identical": first == again,
+          "agreement_with_generate": agreement(again, want),
+          "teacher_forced_logit_delta_vs_fp32_max": max(deltas),
+          "teacher_forced_logit_deltas_vs_fp32": deltas,
+          "teacher_forced_argmax_agreement": argmax_agree,
+          "teacher_forced_logit_scale": scale,
+          "logit_delta_ceiling": FP16_LOGIT_DELTA_CEILING,
+          "first_nonfinite_layer": layer, "launches_fp16": counts16})
+    if first != again or not max(deltas) < FP16_LOGIT_DELTA_CEILING:
+        fail(f"6i fp16: two runs identical {first == again}, logit delta "
+             f"{max(deltas)} (ceiling {FP16_LOGIT_DELTA_CEILING})")
+    del engine
+    torch.cuda.empty_cache()
+
+    # (b) fp16 compute over int8 weights (quantized in place) and int8 KV
+    engine = deepspeed_tpu_torch.init_inference(
+        model, dtype="float16", quant={"enabled": True},
+        kv_cache_dtype="int8", max_out_tokens=512)
+    first8, again8, numbers8 = serve_twice(torch, engine, prompts, max_new,
+                                           sched_kwargs)
+    rows8 = teacher_forced_logits(engine, seq, "int8", sched_kwargs)
+    deltas8, agree8, _ = logit_deltas(rows8, ref)
+    emit({"phase": "serve_fp16_int8_weights_int8_kv", "model": "llama2-7b",
+          "compute": "float16", **numbers8,
+          "two_runs_identical": first8 == again8,
+          "agreement_with_fp16": agreement(again8, again),
+          "teacher_forced_logit_delta_vs_fp32_max": max(deltas8),
+          "teacher_forced_argmax_agreement": agree8,
+          "logits_finite": all(bool(torch.isfinite(r).all())
+                               for r in rows8)})
+    if first8 != again8:
+        fail("6i fp16 over int8 weights and int8 KV: two runs differ")
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # (c) OPT-125m at full depth and BLOOM-560m at 2 layers (ALiBi over
+    # pools: the gathered pages through decode_fwd)
+    for name, cut in (("opt-125m", {}), ("bloom-560m", {"num_layers": 2})):
+        before = dec.launch_counts(f16)
+        engine = family_engine(torch, deepspeed_tpu_torch, name, seed,
+                               dtype="float16", kv_cache_dtype="float16",
+                               cfg={"dtype": "float16", **cut})
+        fam_prompts, fam_new = make_requests(seed, engine.module.cfg
+                                             .vocab_size)
+        layer, finite = first_nonfinite_layer(torch, engine,
+                                              fam_prompts[1][None])
+        if layer is not None or not finite:
+            fail(f"6i {name}: float16 overflow, first non-finite layer "
+                 f"{layer}")
+        want = generated(engine, fam_prompts, fam_new)
+        first, again, numbers = serve_twice(torch, engine, fam_prompts,
+                                            fam_new, sched_kwargs)
+        launched = {k: v - before[k]
+                    for k, v in dec.launch_counts(f16).items()}
+        emit({"phase": "serve_fp16_gpt2_family", "model": name,
+              "layers": engine.module.cfg.num_layers, "dtype": "float16",
+              **numbers, "two_runs_identical": first == again,
+              "agreement_with_generate": agreement(again, want),
+              "launches_fp16": launched})
+        if first != again:
+            fail(f"6i {name} fp16: two runs differ")
+        if name.startswith("bloom") and (launched["decode_fwd"] <= 0 or
+                                         launched["paged_decode_fwd"]):
+            fail(f"6i BLOOM over pools must run decode_fwd alone: "
+                 f"{launched}")
+        del engine
+        torch.cuda.empty_cache()
+
+    # (d) a float16 safetensors directory, config.json saying so
+    path = os.path.join(workdir, "llama_fp16")
+    cfg = dict(LLAMA2_7B_HF, torch_dtype="float16")
+    sd = hf_weights(torch, "llama", cfg, seed, f16)
+    save_hf_dir(path, cfg, sd, fmt="safetensors", shards=2)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    engine = deepspeed_tpu_torch.init_inference(
+        path, dtype="float16", kv_cache_dtype="float16", max_out_tokens=512)
+    torch.cuda.synchronize()
+    ingest_s = time.monotonic() - t0
+    unequal = [n for n, t in engine.module.state_dict().items()
+               if not torch.equal(t.cpu(), sd[hf_name("llama", n)[0]])]
+    hf_prompts, hf_new = make_requests(seed, cfg["vocab_size"])
+    want = generated(engine, hf_prompts, hf_new)
+    first, again, numbers = serve_twice(torch, engine, hf_prompts, hf_new,
+                                        sched_kwargs)
+    emit({"phase": "serve_fp16_hf_dir", "model": "llama2-7b width",
+          "layers": 2, "file_dtype": "float16", "torch_dtype": "float16",
+          "ingest_s": round(ingest_s, 3), "weights_equal_files": not unequal,
+          **numbers, "two_runs_identical": first == again,
+          "agreement_with_generate": agreement(again, want)})
+    if unequal or first != again:
+        fail(f"6i fp16 HF directory: weights differ {unequal[:4]}, two "
+             f"runs identical {first == again}")
+    del engine, sd
+    torch.cuda.empty_cache()
+    counts = {**dec.launch_counts(), **qk.launch_counts()}
+    counts16 = {**dec.launch_counts(f16), **qk.launch_counts(f16)}
+    emit({"phase": "serve_fp16_done", "launches": counts,
+          "launches_fp16": counts16, "launches_fp16_group_8": grouped,
+          "gpu": smi, "phase_s": round(time.monotonic() - t_phase, 3)})
+    return counts16, grouped
+
+
+# ---------------------------------------------------- fp16 training (8f)
+
+
+def reference_scale(scale, overflows, hysteresis=2, window=1000,
+                    min_scale=1.0):
+    """The loss scale after each step of ``overflows``, by the reference's
+    rule written out on the host: an overflow spends one hysteresis and,
+    once none is left, halves the scale (not below ``min_scale``) and
+    refills it; ``window`` good steps in a row double it and refill it."""
+    out, hyst, good = [], hysteresis, 0
+    for ovf in overflows:
+        if ovf:
+            hyst -= 1
+            good = 0
+            if hyst <= 0:
+                scale, hyst = max(scale / 2, min_scale), hysteresis
+        else:
+            good += 1
+            if good % window == 0:
+                scale, good, hyst = scale * 2, 0, hysteresis
+        out.append(scale)
+    return out
+
+
+def train_fp16(torch, deepspeed_tpu_torch, fl, seed, bf16_line, smi,
+               workdir):
+    """Phase 8f: full GPT-2 small in float16 over fp32 masters with
+    bench.py's config and ``"fp16": {"enabled": true}`` (dynamic,
+    initial_scale_power 16), as phase 8 runs bf16; then a run from
+    initial_scale_power 32 through its overflows; then a checkpoint
+    round trip.  Returns the float16 flash launches of the phase."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2, gpt2_small
+    t_phase = time.monotonic()
+    fl.reset_launch_counts()
+    batch, seq = 8, 1024
+    cfg = gpt2_small(dtype="float16")
+    config = {"train_micro_batch_size_per_gpu": batch,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW",
+                            "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "fp16": {"enabled": True, "initial_scale_power": 16},
+              "zero_optimization": {"stage": 1},
+              "steps_per_print": 1000000}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = deepspeed_tpu_torch.initialize(model=GPT2(cfg), config=config,
+                                            seed=seed)[0]
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    data = train_batches(torch, seed + 2, 2, batch, seq, cfg.vocab_size)
+    losses = [engine.train_batch(batches=[data[i % 2]], sync=False)
+              for i in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i in range(3, 13):
+        losses.append(engine.train_batch(batches=[data[i % 2]], sync=False))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    tokens_per_s = 10 * batch * seq / wall
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * \
+        cfg.hidden_size * seq
+    line = {"phase": "train_fp16", "model": "gpt2-small", "params": n_params,
+            "batch": batch, "seq": seq, "zero_stage": 1, "losses": losses,
+            "loss_scale": engine.loss_scale,
+            "skipped_steps": engine.skipped_steps, "timed_steps": 10,
+            "ms_per_step": wall * 1e3 / 10, "tokens_per_s": tokens_per_s,
+            "mfu_vs_989_tflops": tokens_per_s * flops_per_token / BF16_FLOPS,
+            "max_memory_allocated_bytes": peak,
+            "bf16_ms_per_step": bf16_line["ms_per_step"],
+            "bf16_tokens_per_s": bf16_line["tokens_per_s"],
+            "bf16_mfu_vs_989_tflops": bf16_line["mfu_vs_989_tflops"],
+            "bf16_max_memory_allocated_bytes":
+            bf16_line["max_memory_allocated_bytes"], "gpu": smi}
+    emit(line)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[12] < losses[0]:
+        fail(f"fp16 training losses not finite or not falling: {losses}")
+
+    # a checkpoint round trip of this engine: two steps after the save
+    # equal two steps of a fresh engine that loads it
+    run = os.path.join(workdir, "fp16")
+    engine.save_checkpoint(run, tag="saved")
+    want = [engine.train_batch(batches=[data[i % 2]]) for i in range(2)]
+    fresh = deepspeed_tpu_torch.initialize(model=GPT2(cfg), config=config,
+                                           seed=seed + 5)[0]
+    fresh.load_checkpoint(run)
+    got = [fresh.train_batch(batches=[data[i % 2]]) for i in range(2)]
+
+    def state(e):
+        return [p.detach() for p in e.module.parameters()] + \
+            e.optimizer.mu + e.optimizer.nu + [
+                e.optimizer.count, e.scaler.loss_scale, e.scaler.good_steps,
+                e.scaler.hysteresis, e._skipped]
+    resumed = got == want and all(
+        torch.equal(a, b) for a, b in zip(state(engine), state(fresh)))
+    del engine, fresh
+    torch.cuda.empty_cache()
+
+    # from 2^32 the first steps overflow: each skipped step leaves the
+    # masters, moments and count bit for bit, and the scale follows the
+    # reference rule until the run trains
+    over = dict(config, fp16={"enabled": True, "initial_scale_power": 32})
+    engine = deepspeed_tpu_torch.initialize(model=GPT2(cfg), config=over,
+                                            seed=seed)[0]
+    flags, scales, kept, trained = [], [], True, []
+    for i in range(64):
+        before = [t.clone() for t in state(engine)[:-4]]
+        loss = engine.train_batch(batches=[data[i % 2]])
+        ovf = bool(engine._last_metrics["overflow"])
+        flags.append(ovf)
+        scales.append(engine.loss_scale)
+        if ovf:
+            kept = kept and all(torch.equal(a, b) for a, b in
+                                zip(before, state(engine)[:-4]))
+        else:
+            trained.append((i, loss))
+        del before
+        if len(trained) == 6:
+            break
+    want_scales = reference_scale(2.0 ** 32, flags)
+    # the trained steps' losses on the first trained step's batch fall
+    same = [x for j, x in trained if trained and j % 2 == trained[0][0] % 2]
+    falls = len(trained) == 6 and \
+        all(math.isfinite(x) for _, x in trained) and same[-1] < same[0]
+    counts16 = fl.launch_counts(torch.float16)
+    emit({"phase": "train_fp16_overflow", "initial_scale": 2.0 ** 32,
+          "steps": len(flags), "skipped": sum(flags),
+          "overflow_flags": flags, "loss_scales": scales,
+          "reference_scales": want_scales, "skipped_state_bit_equal": kept,
+          "trained_losses": [x for _, x in trained],
+          "resume_equal": resumed, "losses_after_save": want,
+          "losses_after_resume": got, "launches_fp16": counts16,
+          "phase_s": round(time.monotonic() - t_phase, 3)})
+    del engine
+    torch.cuda.empty_cache()
+    if not (flags[0] and kept and scales == want_scales and falls and
+            resumed):
+        fail(f"phase 8f: first step overflowed {flags[0]}, skipped state "
+             f"kept {kept}, scales follow the rule "
+             f"{scales == want_scales}, then trained {falls}, resume "
+             f"equal {resumed}")
+    return counts16
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2453,19 +2842,28 @@ def main():
     spilled = [e["kernel"] for e in checked
                if "0 bytes spill stores, 0 bytes spill loads" not in
                e["spill"]]
+    # the fp16 instantiations: mangled names carry __half ("6__half")
+    half = {k: [e for e in v if "6__half" in e["kernel"]]
+            for k, v in (("paged", decode_ptxas["PagedWalk"]),
+                         ("dense", decode_ptxas["DenseWalk"]),
+                         ("int8", int8_ptxas))}
     if not all((decode_ptxas["PagedWalk"], decode_ptxas["DenseWalk"],
-                int8_ptxas)) or spilled:
+                int8_ptxas, *half.values())) or spilled:
         fail(f"a decode or int8_matmul instantiation spills (or none was "
-             f"built): {spilled}")
+             f"built, fp16 included: "
+             f"{ {k: len(v) for k, v in half.items()} }): {spilled}")
     fwd_ptxas = [e for e in ptxas if "flash_fwd_wgmma_kernel" in e["kernel"]]
     emit({"phase": "ptxas_flash_fwd", "instantiations": fwd_ptxas})
     spilled = [e["kernel"] for e in fwd_ptxas
                if "0 bytes spill stores, 0 bytes spill loads" not in
                e["spill"]]
-    if not fwd_ptxas or spilled:
-        fail(f"the bf16 flash forward spills (or was not built): {spilled}")
-    # the bf16 backward pair: dq and dkv kernels, d 32 / 64 / 128, dense
-    # and sparse walk
+    n_half = sum("6__half" in e["kernel"] for e in fwd_ptxas)
+    if len(fwd_ptxas) != 12 or n_half != 6 or spilled:
+        fail(f"the bf16 / fp16 flash forward spills (or not all 12 of its "
+             f"instantiations, 6 fp16, were built): {spilled}, "
+             f"{len(fwd_ptxas)} built, {n_half} fp16")
+    # the bf16 and fp16 backward pair: dq and dkv kernels, d 32 / 64 /
+    # 128, dense and sparse walk
     bwd_ptxas = [e for e in ptxas
                  if "flash_bwd_dq_wgmma_kernel" in e["kernel"] or
                  "flash_bwd_dkv_wgmma_kernel" in e["kernel"]]
@@ -2473,10 +2871,11 @@ def main():
     spilled = [e["kernel"] for e in bwd_ptxas
                if "0 bytes spill stores, 0 bytes spill loads" not in
                e["spill"]]
-    if len(bwd_ptxas) != 12 or spilled:
-        fail(f"the bf16 flash backward spills (or not all 12 of its "
-             f"instantiations were built): {spilled}, "
-             f"{len(bwd_ptxas)} built")
+    n_half = sum("6__half" in e["kernel"] for e in bwd_ptxas)
+    if len(bwd_ptxas) != 24 or n_half != 12 or spilled:
+        fail(f"the bf16 / fp16 flash backward spills (or not all 24 of its "
+             f"instantiations, 12 fp16, were built): {spilled}, "
+             f"{len(bwd_ptxas)} built, {n_half} fp16")
 
     # ---- kernel phase: the serving path's shapes
     serve_pos = [0, 7, 100, 231]          # ragged: 0, mid-page, 200+ tokens
@@ -2486,7 +2885,7 @@ def main():
                    128),
                   ("falcon-7b heads (MQA 71/1) 32 slots x 1024", 71, 1, 64))
     results = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         dn = str(dtype).replace("torch.", "")
         results[("paged", dn)] = paged_case(
             torch, dec, "llama2-7b serve batch", 32, 32, 128, 16, serve_pos,
@@ -2524,7 +2923,8 @@ def main():
     # ---- int8_matmul kernel phase: the Llama-2-7B projections
     batch_invariance(torch, qk, tq, seed=6)
     batch_invariance(torch, qk, tq, seed=6, dtype_name="bfloat16")
-    for dtype in (torch.bfloat16, torch.float32):
+    batch_invariance(torch, qk, tq, seed=6, dtype_name="float16")
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         dn = str(dtype).replace("torch.", "")
         for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
                      (4096, 32000)):
@@ -2536,7 +2936,7 @@ def main():
 
     # ---- flash kernel phase: the training path's shapes
     flash_results = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         dn = str(dtype).replace("torch.", "")
         for name, b, lq, lk, h, d, causal in (
                 ("a gpt2-small train", 8, 1024, 1024, 12, 64, True),
@@ -2553,13 +2953,17 @@ def main():
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops.attention import block_sparse as bs
     sparse_results = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         dn = str(dtype).replace("torch.", "")
+        if dtype == torch.float16:
+            bs.reset_launch_counts()     # the fp16 pass's own launches
         for i, (name, cfg, causal) in enumerate(sparse_kernel_configs(sa)):
             sparse_results[(name, dn)] = sparse_case(
                 torch, bs, fl, name, cfg, causal, dtype, rotations=2,
                 seed=40 + i)
             torch.cuda.empty_cache()
+        if dtype == torch.float16:
+            sparse_fp16 = bs.launch_counts(torch.float16)
     sparse_counts = sparse_attention_phase(torch, sa, bs, fl, args.seed)
     torch.cuda.empty_cache()
 
@@ -2675,18 +3079,31 @@ def main():
                              sched_kwargs, smi, workdir)
     torch.cuda.empty_cache()
 
+    # ---- fp16 serving (6i): Llama-2-7B at full depth, fp16 over int8,
+    # OPT-125m, BLOOM-560m, an fp16 HF directory; the float16 launches
+    with tempfile.TemporaryDirectory() as workdir:
+        i_counts, i_grouped = serve_fp16(
+            torch, deepspeed_tpu_torch, dec, qk, args.seed, prompts, max_new,
+            sched_kwargs, smi, workdir)
+    torch.cuda.empty_cache()
+
     # ---- train phases: the fp32 oracle, then the bf16 main path, then
     # checkpoints of that engine (8b, with the phase's own flash counts)
     train_oracle(torch, fl, deepspeed_tpu_torch, args.seed)
     torch.cuda.empty_cache()
     fl.reset_launch_counts()
-    _, engine8, config8, data8 = train_bf16(torch, deepspeed_tpu_torch,
-                                            args.seed)
+    bf16_line, engine8, config8, data8 = train_bf16(
+        torch, deepspeed_tpu_torch, args.seed)
     counts.update(fl.launch_counts())
     with tempfile.TemporaryDirectory() as workdir:
         c_counts = train_checkpoints(torch, deepspeed_tpu_torch, fl, engine8,
                                      config8, data8, args.seed, smi, workdir)
     del engine8, data8
+    torch.cuda.empty_cache()
+    # ---- fp16 training (8f), with the phase's float16 flash launches
+    with tempfile.TemporaryDirectory() as workdir:
+        f16_counts = train_fp16(torch, deepspeed_tpu_torch, fl, args.seed,
+                                bf16_line, smi, workdir)
     torch.cuda.empty_cache()
 
     kernels = []
@@ -2838,8 +3255,55 @@ def main():
             k["launches_6h"] = h_counts[k["name"]]
         if k["name"] in c_counts:
             k["launches_8b"] = c_counts[k["name"]]
+    # float16: each row's fp16 numbers beside its bf16 ones (the same
+    # shape, so the same bound bytes), and its fp16 launches: rows 1-3q
+    # and 12 in phase 6i, rows 4-8 in 8f, rows 9-11 in 4b's fp16 pass
+    def decode_fp16(r):
+        return {"ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                "library_ms": r.get("library_ms"), "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "max_abs_err": r["max_abs_err"]}
+
+    def tiled_fp16(r, key, errs):
+        fwd = key == "fwd"
+        return {"ms": r["ms"][key],
+                "plain_ms": r["ms"]["plain_fwd" if fwd else "plain_bwd"],
+                "library_ms": r["ms"]["sdpa_fwd"] if fwd
+                else r["sdpa_bwd_ms"],
+                "bound_ms": r["bound_ms"][key],
+                "bound_by": r["bound_by"][key],
+                "max_abs_err": max(r["max_abs_err"][e] for e in errs)}
+    r16 = results[("int8_matmul", "float16", 4, 4096, 4096)]
+    fp16 = {
+        "paged_decode_fwd": (decode_fp16(results[("paged", "float16")]),
+                             i_counts["paged_decode_fwd"]),
+        "decode_fwd": (decode_fp16(results[("dense", "float16")]),
+                       i_counts["decode_fwd"]),
+        "paged_decode_quant_fwd": (
+            decode_fp16(results[("paged_quant", "int8", "float16")]),
+            i_counts["paged_decode_quant_fwd"]),
+        "paged_decode_quant_fwd (group 8)": (
+            decode_fp16(results[("paged_quant_gqa", "int8", "float16")]),
+            i_grouped[1]),
+        "int8_matmul_fwd": (dict(decode_fp16(r16), library_ms=None,
+                                 float_linear_ms=r16["float_linear_ms"]),
+                            i_counts["int8_matmul_fwd"])}
+    for name, key, errs in (("flash_fwd", "fwd", ("o", "lse")),
+                            ("flash_bwd_dq", "bwd_dq", ("dq",)),
+                            ("flash_bwd_dkv", "bwd_dkv", ("dk", "dv"))):
+        fp16[name] = (tiled_fp16(flash_results[("a", "float16")], key, errs),
+                      f16_counts[name])
+        sparse = "sparse" + name[len("flash"):]
+        fp16[sparse] = (tiled_fp16(sparse_results[("bigbird", "float16")],
+                                   key, errs), sparse_fp16[sparse])
+    for k in kernels:
+        k["fp16"], k["launches_fp16"] = fp16[k["name"]]
+    kernels[0]["launches_fp16_group_8"] = i_grouped[0]
     emit({"kernels": kernels})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    missing += [f"{k['name']} (fp16)" for k in kernels
+                if k["launches_fp16"] <= 0]
+    if i_grouped[0] <= 0:
+        missing.append("paged_decode_fwd (fp16, group 8)")
     missing += [f"{k['name']} (8b)" for k in kernels
                 if k.get("launches_8b", 1) <= 0]
     if grouped_float <= 0:

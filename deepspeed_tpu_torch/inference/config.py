@@ -23,7 +23,7 @@ and ignored.
 
 from typing import Any, Dict, Optional
 
-from pydantic import BaseModel, ConfigDict, Field
+from pydantic import BaseModel, ConfigDict, Field, field_validator
 
 from deepspeed_tpu_torch.ops.quant.kv import KV_QUANT_DTYPES
 
@@ -101,6 +101,12 @@ class DeepSpeedInferenceConfig(BaseModel):
     # None -> CUDA (raises when no card is visible); "cpu" runs the
     # plain PyTorch versions of the kernels on the host
     device: Optional[Any] = None
+
+    @field_validator("dtype", "kv_cache_dtype", mode="before")
+    @classmethod
+    def _dtype_name(cls, value):
+        """A dtype object (``torch.float16``) stands for its name."""
+        return value if isinstance(value, str) else str(value)
 
     def model_post_init(self, _ctx):
         for key in self.model_extra or {}:

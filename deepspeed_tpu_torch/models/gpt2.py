@@ -59,7 +59,8 @@ from deepspeed_tpu_torch.ops.attention.reference import (apply_partial_rotary,
 from deepspeed_tpu_torch.ops.quant.qdense import QDense, quant_matmul
 from deepspeed_tpu_torch.ops.quant.quantizer import QTensor
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 ACTIVATIONS = ("gelu", "gelu_exact", "relu")
 PAGED_WINDOWS_REFUSED = (
     "paged serving of local attention windows (GPT-Neo) is not supported: "

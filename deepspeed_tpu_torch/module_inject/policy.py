@@ -108,7 +108,8 @@ def _dtype(dtype):
     if dtype is None:
         return torch.float32
     if isinstance(dtype, str):
-        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}[dtype]
     return dtype
 
 

@@ -43,10 +43,11 @@ _LAUNCHES = LaunchCounter("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 TILE = 64            # the kernels' rows per tile (flash_kernels.cuh kBQ)
 
 
-def launch_counts():
+def launch_counts(dtype=None):
     """Kernel launches since the last :func:`reset_launch_counts`
-    (CUDA-graph replays included, ``ops/launch_counter.py``)."""
-    return _LAUNCHES.counts()
+    (CUDA-graph replays included, ``ops/launch_counter.py``); with
+    ``dtype``, those of that dtype's instantiation."""
+    return _LAUNCHES.counts(dtype)
 
 
 def reset_launch_counts():
@@ -255,7 +256,7 @@ def _launch(name, index, tensors, outs, causal, scale):
         int(causal), _scale(scale, d), _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed(name, err)
-    _LAUNCHES.add(name)
+    _LAUNCHES.add(name, q.dtype)
 
 
 def sparse_fwd(q, k, v, index, *, causal, scale=None):

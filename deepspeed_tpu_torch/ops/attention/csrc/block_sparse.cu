@@ -162,7 +162,7 @@ Params sparse_params(const void* q, const void* k, const void* v,
 // ceil(len / 64)] (tile ranks, heaviest first); tile = the index's row
 // granularity, fine = the layout's block. q, k, v, do: [b, len, heads, d]
 // through 12 element strides as in flash_attention.cu. dtype: 0 =
-// float32, 1 = bfloat16. Each returns a cudaError_t (0 = launched).
+// float32, 1 = bfloat16, 2 = float16. Each returns a cudaError_t (0 = launched).
 extern "C" int sparse_fwd(const void* q, const void* k, const void* v,
                           void* o, void* lse, const long long* strides,
                           const int* row_ptr, const int* cols,

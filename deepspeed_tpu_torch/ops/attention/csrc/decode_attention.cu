@@ -63,12 +63,14 @@
 //    last live key of a tile are scored NEG_INF and their V rows zeroed.
 //  * the group as one product: the block's query heads (a tile of up to
 //    16 of its kv head's group; larger groups take more tiles, MQA
-//    included) are the rows of S = Q K^T and acc += P V.  bf16 runs
-//    mma.sync.m16n8k16 (fp32 accumulate) with ldmatrix from the staged
+//    included) are the rows of S = Q K^T and acc += P V.  bf16 and fp16
+//    run mma.sync.m16n8k16 (fp32 accumulate; the .bf16 or .f16 form, one
+//    template over the element type) with ldmatrix from the staged
 //    tiles, rows padded to 16 and head_dim to the mma depth with zeros.
 //    Each warp owns 16 keys of a 64-key tile and keeps its own online
 //    softmax in registers (P goes from the S fragments straight into the
-//    A fragments of P V, rounded to bf16 as the reference does); the four
+//    A fragments of P V, rounded to the value type as the reference
+//    does); the four
 //    warps merge once at the end.  The fp32 instantiation (the serving
 //    oracle) runs fp32 FMAs over the same staged tiles: no TF32.  No
 //    register array grows with the group, so every group runs.
@@ -86,6 +88,7 @@
 // rounded to the compute dtype (q's) before the dot, as decode.py:196-199.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -102,6 +105,9 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) {
+  return __half2float(x);
+}
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
 }
@@ -116,6 +122,14 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// the 16-bit compute types, which run the tensor-core product
+template <typename T>
+constexpr bool kIs16 = std::is_same<T, __nv_bfloat16>::value ||
+                       std::is_same<T, __half>::value;
 
 // ========================== decode_kernel: the paged and the dense walk
 
@@ -158,12 +172,13 @@ struct DecodeParams {
 template <typename T, typename S>
 struct DecodeLayout {
   static constexpr bool kQuant = !std::is_same<T, S>::value;
-  static constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  // bf16: 64 keys a stage; fp32 (FMA, 4 threads a key): 32; two stages
+  static constexpr bool kMma = kIs16<T>;
+  // bf16 / fp16: 64 keys a stage; fp32 (FMA, 4 threads a key): 32; two
+  // stages
   static constexpr int kKeys = kMma ? 64 : 32;
   static constexpr int kStages = 2;
   static constexpr int kSStride = kKeys + 4;   // fp32 score rows
-  int dk;          // head_dim padded to the mma depth (16) for bf16
+  int dk;          // head_dim padded to the mma depth (16) for 16 bits
   int ring_stride; // bytes per staged K/V row
   int t_stride;    // bytes per row of a compute-type tile (Q, dequantized)
   size_t ring, scales, deq, bias, q, s, stats, bars, pages, recv, total;
@@ -287,27 +302,49 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
       : "r"(smem_addr(p)));
 }
 
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a (16x16 T, row) * b (16x8 T, col), fp32 accumulate; T is bf16
+// or fp16
+template <typename T>
+__device__ __forceinline__ void mma16(float* c, const unsigned* a,
+                                      unsigned b0, unsigned b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to T (bf16 or fp16, round to nearest even), packed
+// into one 32-bit word, the first in the low half
+template <typename T>
+__device__ __forceinline__ unsigned pack2(float a, float b) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const unsigned*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const unsigned*>(&h);
+  }
 }
 
 // 16 one-byte payload elements of a quantized row -> float(x) * scale
 // rounded to T (zeros where the row is past the live keys), stored as
 // 16-byte words
-__device__ __forceinline__ void pack16(const float* v, __nv_bfloat16* dst) {
+template <typename T>
+__device__ __forceinline__ std::enable_if_t<kIs16<T>> pack16(const float* v,
+                                                             T* dst) {
   unsigned w[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const unsigned*>(&h);
-  }
+  for (int i = 0; i < 8; ++i) w[i] = pack2<T>(v[2 * i], v[2 * i + 1]);
   uint4* d = reinterpret_cast<uint4*>(dst);
   d[0] = make_uint4(w[0], w[1], w[2], w[3]);
   d[1] = make_uint4(w[4], w[5], w[6], w[7]);
@@ -589,13 +626,13 @@ __global__ void __launch_bounds__(kPThreads, 1) decode_kernel(
           ldmatrix_x4(b, krow + kc * 16);
           float (&cc)[2][4] = kc & 1 ? c2 : c;
           if constexpr (kQRegs) {
-            mma_bf16(cc[0], qa[kc], b[0], b[1]);
-            mma_bf16(cc[1], qa[kc], b[2], b[3]);
+            mma16<T>(cc[0], qa[kc], b[0], b[1]);
+            mma16<T>(cc[1], qa[kc], b[2], b[3]);
           } else {
             unsigned qf[4];
             ldmatrix_x4(qf, qrow + kc * 16);
-            mma_bf16(cc[0], qf, b[0], b[1]);
-            mma_bf16(cc[1], qf, b[2], b[3]);
+            mma16<T>(cc[0], qf, b[0], b[1]);
+            mma16<T>(cc[1], qf, b[2], b[3]);
           }
         }
       }
@@ -642,8 +679,7 @@ __global__ void __launch_bounds__(kPThreads, 1) decode_kernel(
           const float e0 = live ? __expf(c[nb][2 * h] - mx[h]) : 0.f;
           const float e1 = live ? __expf(c[nb][2 * h + 1] - mx[h]) : 0.f;
           l_run[h] += e0 + e1;
-          const __nv_bfloat162 pr = __floats2bfloat162_rn(e0, e1);
-          pa[2 * nb + h] = *reinterpret_cast<const unsigned*>(&pr);
+          pa[2 * nb + h] = pack2<T>(e0, e1);
         }
       // acc = alpha * acc + P V over the warp's 16 keys, two n-blocks a
       // transposed load
@@ -660,7 +696,7 @@ __global__ void __launch_bounds__(kPThreads, 1) decode_kernel(
             a[1] *= alpha[0];
             a[2] *= alpha[1];
             a[3] *= alpha[1];
-            mma_bf16(a, pa, b[2 * x], b[2 * x + 1]);
+            mma16<T>(a, pa, b[2 * x], b[2 * x + 1]);
           }
         }
       }
@@ -955,14 +991,14 @@ cudaError_t launch_d(const DecodeParams& p, int n_seq, cudaStream_t stream) {
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// bf16 keeps a head_dim's accumulators in registers: head_dim <= 128
-// takes the instantiation with half the registers of the 256 one
+// bf16 and fp16 keep a head_dim's accumulators in registers: head_dim <=
+// 128 takes the instantiation with half the registers of the 256 one
 template <typename T, typename S, typename Walk>
 cudaError_t launch(const DecodeParams& p, int n_seq, cudaStream_t stream) {
   constexpr int kChunk = 16 / (int)sizeof(S);
   if (p.head_dim % kChunk != 0 || p.head_dim % 8 != 0)
     return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+  if constexpr (kIs16<T>)
     if (p.head_dim <= 128) return launch_d<T, S, Walk, 128>(p, n_seq, stream);
   return launch_d<T, S, Walk, kMaxHeadDim>(p, n_seq, stream);
 }
@@ -974,7 +1010,7 @@ bool fill_grid(DecodeParams& p, int n_seq, int kv_heads, int group,
                float scale) {
   if (n_seq <= 0 || n_seq > 65535 || kv_heads <= 0 || group < 1 ||
       head_dim <= 0 || head_dim > kMaxHeadDim ||
-      (dtype != 0 && dtype != 1) || n_keys <= 0 || split_keys <= 0)
+      dtype < 0 || dtype > 2 || n_keys <= 0 || split_keys <= 0)
     return false;
   p.kv_heads = kv_heads;
   p.group = group;
@@ -1008,9 +1044,9 @@ int dispatch_float(const DecodeParams& p, int n_seq, int dtype,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      dtype == 0
-          ? launch<float, float, Walk>(p, n_seq, s)
-          : launch<__nv_bfloat16, __nv_bfloat16, Walk>(p, n_seq, s));
+      dtype == 0   ? launch<float, float, Walk>(p, n_seq, s)
+      : dtype == 1 ? launch<__nv_bfloat16, __nv_bfloat16, Walk>(p, n_seq, s)
+                   : launch<__half, __half, Walk>(p, n_seq, s));
 }
 
 // quantized pools: S = int8_t or __nv_fp8_e4m3
@@ -1019,13 +1055,14 @@ int dispatch_quant(const DecodeParams& p, int slots, int dtype,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      dtype == 0 ? launch<float, S, PagedWalk>(p, slots, s)
-                 : launch<__nv_bfloat16, S, PagedWalk>(p, slots, s));
+      dtype == 0   ? launch<float, S, PagedWalk>(p, slots, s)
+      : dtype == 1 ? launch<__nv_bfloat16, S, PagedWalk>(p, slots, s)
+                   : launch<__half, S, PagedWalk>(p, slots, s));
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. A split is pages_per_split pages;
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. A split is pages_per_split pages;
 // ceil(max_pages / pages_per_split) must be at most 4 (one cluster).
 // Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_fwd(const void* q, const void* k_pages,

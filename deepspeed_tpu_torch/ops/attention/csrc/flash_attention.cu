@@ -125,7 +125,7 @@ Params dense_params(const void* q, const void* k, const void* v,
 
 // strides: 12 element strides (batch, seq, head) of q, k, v, do, in that
 // order (do's are unused by the forward). dtype: 0 = float32, 1 =
-// bfloat16. Each returns a cudaError_t (0 = launched).
+// bfloat16, 2 = float16. Each returns a cudaError_t (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, const long long* strides,
                          int batch, int heads, int lq, int lk, int head_dim,

@@ -16,7 +16,9 @@
 // SparseWalk (block_sparse.cu) visits the tiles of a layout's active blocks
 // and masks inside them by fine-cell bits.
 //
-// Design, per dtype: bf16 runs Hopper kernels (namespace hw below: a
+// Design, per dtype: bf16 and fp16 run Hopper kernels (namespace hw
+// below, templates over the element type T: the wgmma type, the pack to
+// the operand type and the TMA map's data type follow it; a
 // producer warp keeping a TMA ring of tiles in flight, a consumer
 // warpgroup running every product as wgmma, the softmax of the forward
 // and the p / ds of the backward pair in the accumulator registers); fp32
@@ -53,6 +55,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -441,7 +444,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// ------------------------------------------- bf16 forward for Hopper (hw)
+// ------------------------------ bf16 / fp16 forward for Hopper (hw)
 // flash_fwd_wgmma_kernel: one block of a consumer warpgroup and a
 // producer warp owns 64 query rows.
 //   - one thread of the producer warp loads the block's Q tile once, then
@@ -478,7 +481,6 @@ enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 //     (PERF.md).
 namespace hw {
 
-using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kHwThreads = 160;    // consumer warpgroup + producer warp
 
@@ -607,138 +609,163 @@ __device__ __forceinline__ void fence_regs(uint32_t (&x)[N]) {
 
 // d[32] (+)= A . B^T, m64n64k16: A and B from shared memory, both
 // K-major; scale_d = 0 overwrites d
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(
     float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+#define HW_ASM(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n" \
+      " setp.ne.b32 p, %34, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7," \
+      " %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23," \
+      " %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(a), "l"(b), "r"(scale_d))
+  if constexpr (std::is_same<T, __half>::value) HW_ASM("f16");
+  else HW_ASM("bf16");
+#undef HW_ASM
 }
 
 // d[32] = A . B^T, m64n64k16, both K-major: the first k-step of a
 // product, which overwrites d; d is an output only, so its old values
 // need not stay live in registers up to the issue
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64_first(
     float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
-      : "l"(a), "l"(b), "r"(0));
+#define HW_ASM(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n" \
+      " setp.ne.b32 p, %34, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7," \
+      " %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23," \
+      " %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), \
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), \
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), \
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), \
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), \
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), \
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), \
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]) \
+      : "l"(a), "l"(b), "r"(0))
+  if constexpr (std::is_same<T, __half>::value) HW_ASM("f16");
+  else HW_ASM("bf16");
+#undef HW_ASM
 }
 
 // d[16] += A . B, m64n32k16: A (bf16 pairs) from registers, B from
 // shared memory, MN-major (the transpose flag)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n32(
     float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " setp.ne.b32 p, %21, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define HW_ASM(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n" \
+      " setp.ne.b32 p, %21, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7," \
+      " %8, %9, %10, %11, %12, %13, %14, %15}, " \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+  if constexpr (std::is_same<T, __half>::value) HW_ASM("f16");
+  else HW_ASM("bf16");
+#undef HW_ASM
 }
 
 // d[32] += A . B, m64n64k16: A (bf16 pairs) from registers, B from
 // shared memory, MN-major (the transpose flag)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(
     float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define HW_ASM(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n" \
+      " setp.ne.b32 p, %37, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7," \
+      " %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23," \
+      " %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+  if constexpr (std::is_same<T, __half>::value) HW_ASM("f16");
+  else HW_ASM("bf16");
+#undef HW_ASM
 }
 
 // d[64] += A . B, m64n128k16: A (bf16 pairs) from registers, B from
 // shared memory, MN-major (the transpose flag)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(
     float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define HW_ASM(TY) \
+  asm volatile( \
+      "{\n .reg .pred p;\n" \
+      " setp.ne.b32 p, %69, 0;\n" \
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7," \
+      " %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23," \
+      " %24, %25, %26, %27, %28, %29, %30, %31," \
+      " %32, %33, %34, %35, %36, %37, %38, %39," \
+      " %40, %41, %42, %43, %44, %45, %46, %47," \
+      " %48, %49, %50, %51, %52, %53, %54, %55," \
+      " %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+  if constexpr (std::is_same<T, __half>::value) HW_ASM("f16");
+  else HW_ASM("bf16");
+#undef HW_ASM
 }
 
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t b) {
-  if constexpr (D == 32) wgmma_rs_n32(d, a, b);
-  else if constexpr (D == 64) wgmma_rs_n64(d, a, b);
-  else wgmma_rs_n128(d, a, b);
+  if constexpr (D == 32) wgmma_rs_n32<T>(d, a, b);
+  else if constexpr (D == 64) wgmma_rs_n64<T>(d, a, b);
+  else wgmma_rs_n128<T>(d, a, b);
 }
 
 // 2^x on the special-function unit, one instruction (ex2.approx.ftz:
@@ -749,12 +776,20 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
+// two floats rounded to T (bf16 or fp16, to nearest even) in one
+// register, lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 x = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&x);
+  } else {
+    const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&x);
+  }
 }
 
-template <int D, class Walk>
+template <typename T, int D, class Walk>
 __global__ void __launch_bounds__(kHwThreads, FwdCfg<D>::kMinBlocks)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
@@ -858,7 +893,7 @@ __global__ void __launch_bounds__(kHwThreads, FwdCfg<D>::kMinBlocks)
     const uint32_t k_addr = smem_u32(ring + 2 * st * C::kTileBytes);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, desc_kmajor<D>(q_addr, kk), desc_kmajor<D>(k_addr, kk),
+      wgmma_ss_n64<T>(s, desc_kmajor<D>(q_addr, kk), desc_kmajor<D>(k_addr, kk),
                    kk > 0);
     wg_commit();
   };
@@ -870,7 +905,7 @@ __global__ void __launch_bounds__(kHwThreads, FwdCfg<D>::kMinBlocks)
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
                              pk[4 * kk + 3]};
-      wgmma_rs<D>(o, a, desc_mnmajor<D>(v_addr, kk));
+      wgmma_rs<T, D>(o, a, desc_mnmajor<D>(v_addr, kk));
     }
     wg_commit();
   };
@@ -941,7 +976,7 @@ __global__ void __launch_bounds__(kHwThreads, FwdCfg<D>::kMinBlocks)
         }
     }
 #pragma unroll
-    for (int t = 0; t < 16; ++t) pk[t] = pack_bf16(s[2 * t], s[2 * t + 1]);
+    for (int t = 0; t < 16; ++t) pk[t] = pack<T>(s[2 * t], s[2 * t + 1]);
   };
 
   // Software pipeline over the walk: tile t's scores are issued together
@@ -1003,7 +1038,7 @@ __global__ void __launch_bounds__(kHwThreads, FwdCfg<D>::kMinBlocks)
     mbar_arrive(&v_empty[prev]);
   }
 
-  bf16* out = static_cast<bf16*>(p.o);
+  T* out = static_cast<T*>(p.o);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float li = l[i];
@@ -1013,17 +1048,17 @@ __global__ void __launch_bounds__(kHwThreads, FwdCfg<D>::kMinBlocks)
     const float inv = 1.f / ll;
     const int row = rows[i];
     if (row < p.lq) {
-      bf16* dst = out + (((long long)b * p.lq + row) * p.heads + h) * D + c;
+      T* dst = out + (((long long)b * p.lq + row) * p.heads + h) * D + c;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-            pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+            pack<T>(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
       if (c == 0) p.lse[(long long)bh * p.lq + row] = m[i] + logf(ll);
     }
   }
 }
 
-// ------------------------------------------ bf16 backward for Hopper (hw)
+// ----------------------------- bf16 / fp16 backward for Hopper (hw)
 // flash_bwd_dq_wgmma_kernel (a block owns 64 query rows and walks key
 // tiles) and flash_bwd_dkv_wgmma_kernel (64 key rows, walks query tiles)
 // share one body, flash_bwd_wgmma, and the forward's block: a consumer
@@ -1084,7 +1119,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
-template <int D, bool kKeysOwn, class Walk>
+template <typename T, int D, bool kKeysOwn, class Walk>
 __device__ __forceinline__ void flash_bwd_wgmma(const CUtensorMap& map_q,
                                                 const CUtensorMap& map_k,
                                                 const CUtensorMap& map_v,
@@ -1216,16 +1251,16 @@ __device__ __forceinline__ void flash_bwd_wgmma(const CUtensorMap& map_q,
   // of the walked pair in stage st, issued (not waited for)
   auto issue_scores = [&](int st) {
     const uint32_t w = smem_u32(ring + 2 * st * C::kTileBytes);
-    wgmma_ss_n64_first(s, desc_kmajor<D>(own_addr, 0), desc_kmajor<D>(w, 0));
+    wgmma_ss_n64_first<T>(s, desc_kmajor<D>(own_addr, 0), desc_kmajor<D>(w, 0));
 #pragma unroll
     for (int kk = 1; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, desc_kmajor<D>(own_addr, kk), desc_kmajor<D>(w, kk),
+      wgmma_ss_n64<T>(s, desc_kmajor<D>(own_addr, kk), desc_kmajor<D>(w, kk),
                    1);
     const uint32_t a1 = own_addr + C::kTileBytes, w1 = w + C::kTileBytes;
-    wgmma_ss_n64_first(dp, desc_kmajor<D>(a1, 0), desc_kmajor<D>(w1, 0));
+    wgmma_ss_n64_first<T>(dp, desc_kmajor<D>(a1, 0), desc_kmajor<D>(w1, 0));
 #pragma unroll
     for (int kk = 1; kk < D / 16; ++kk)
-      wgmma_ss_n64(dp, desc_kmajor<D>(a1, kk), desc_kmajor<D>(w1, kk), 1);
+      wgmma_ss_n64<T>(dp, desc_kmajor<D>(a1, kk), desc_kmajor<D>(w1, kk), 1);
     wg_commit();
   };
   // dq: dQ += dS.K; dkv: dV += P^T.dO and dK += dS^T.Q; the walked tile is
@@ -1237,14 +1272,14 @@ __device__ __forceinline__ void flash_bwd_wgmma(const CUtensorMap& map_q,
       for (int kk = 0; kk < kBQ / 16; ++kk) {
         const uint32_t a[4] = {pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2],
                                pp[4 * kk + 3]};
-        wgmma_rs<D>(dv, a, desc_mnmajor<D>(w + C::kTileBytes, kk));
+        wgmma_rs<T, D>(dv, a, desc_mnmajor<D>(w + C::kTileBytes, kk));
       }
     }
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint32_t a[4] = {pds[4 * kk], pds[4 * kk + 1], pds[4 * kk + 2],
                              pds[4 * kk + 3]};
-      wgmma_rs<D>(dx, a, desc_mnmajor<D>(w, kk));
+      wgmma_rs<T, D>(dx, a, desc_mnmajor<D>(w, kk));
     }
     wg_commit();
   };
@@ -1292,8 +1327,8 @@ __device__ __forceinline__ void flash_bwd_wgmma(const CUtensorMap& map_q,
             ds[e] = pr[e] * fmaf(dp[at], p.scale, -dl[k]);
           }
           if constexpr (kKeysOwn) {
-            pds[2 * j + i] = pack_bf16(ds[0], ds[1]);
-            pp[2 * j + i] = pack_bf16(pr[0], pr[1]);
+            pds[2 * j + i] = pack<T>(ds[0], ds[1]);
+            pp[2 * j + i] = pack<T>(pr[0], pr[1]);
           } else {
             dp[4 * j + 2 * i] = ds[0];
             dp[4 * j + 2 * i + 1] = ds[1];
@@ -1314,7 +1349,7 @@ __device__ __forceinline__ void flash_bwd_wgmma(const CUtensorMap& map_q,
       run(std::false_type{});
     if constexpr (!kKeysOwn) {
 #pragma unroll
-      for (int t = 0; t < 16; ++t) pds[t] = pack_bf16(dp[2 * t], dp[2 * t + 1]);
+      for (int t = 0; t < 16; ++t) pds[t] = pack<T>(dp[2 * t], dp[2 * t + 1]);
     }
   };
 
@@ -1360,23 +1395,23 @@ __device__ __forceinline__ void flash_bwd_wgmma(const CUtensorMap& map_q,
     if (row < len) {
       const long long at =
           (((long long)b * len + row) * p.heads + h) * D + c;
-      bf16* gx = static_cast<bf16*>(kKeysOwn ? p.dk : p.dq) + at;
+      T* gx = static_cast<T*>(kKeysOwn ? p.dk : p.dq) + at;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(gx + 8 * j) =
-            pack_bf16(dx[4 * j + 2 * i], dx[4 * j + 2 * i + 1]);
+            pack<T>(dx[4 * j + 2 * i], dx[4 * j + 2 * i + 1]);
       if constexpr (kKeysOwn) {
-        bf16* gv = static_cast<bf16*>(p.dv) + at;
+        T* gv = static_cast<T*>(p.dv) + at;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           *reinterpret_cast<uint32_t*>(gv + 8 * j) =
-              pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+              pack<T>(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
       }
     }
   }
 }
 
-template <int D, class Walk>
+template <typename T, int D, class Walk>
 __global__ void __launch_bounds__(
     kHwThreads, BwdCfg<D, false, Walk::kIndexed>::kMinBlocks)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -1384,10 +1419,10 @@ __global__ void __launch_bounds__(
                               const __grid_constant__ CUtensorMap map_v,
                               const __grid_constant__ CUtensorMap map_do,
                               const Params p) {
-  flash_bwd_wgmma<D, false, Walk>(map_q, map_k, map_v, map_do, p);
+  flash_bwd_wgmma<T, D, false, Walk>(map_q, map_k, map_v, map_do, p);
 }
 
-template <int D, class Walk>
+template <typename T, int D, class Walk>
 __global__ void __launch_bounds__(
     kHwThreads, BwdCfg<D, true, Walk::kIndexed>::kMinBlocks)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -1395,10 +1430,11 @@ __global__ void __launch_bounds__(
                                const __grid_constant__ CUtensorMap map_v,
                                const __grid_constant__ CUtensorMap map_do,
                                const Params p) {
-  flash_bwd_wgmma<D, true, Walk>(map_q, map_k, map_v, map_do, p);
+  flash_bwd_wgmma<T, D, true, Walk>(map_q, map_k, map_v, map_do, p);
 }
 
-// the tensor map of one [batch, len, heads, D] bf16 operand: dims (d,
+// the tensor map of one [batch, len, heads, D] bf16 or fp16 operand (T):
+// dims (d,
 // head, position, batch), strides rising, box (kBox, 1, 64, 1); a dim of
 // extent 1 takes the stride a contiguous tensor would give it
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -1428,7 +1464,7 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int D>
+template <typename T, int D>
 bool encode_map(CUtensorMap* map, const void* ptr, int batch, int len,
                 int heads, long long sb, long long sl, long long sh) {
   using C = FwdCfg<D>;
@@ -1443,7 +1479,10 @@ bool encode_map(CUtensorMap* map, const void* ptr, int batch, int len,
                                  (cuuint64_t)st[2] * 2};
   const cuuint32_t box[4] = {(cuuint32_t)C::kBox, 1, 64, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+  return fn(map,
+            std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -1468,19 +1507,19 @@ cudaError_t opt_in(Kernel kern, int smem, bool& done) {
 
 // builds the maps on the host (no stream operation: safe while a CUDA
 // graph is captured; the maps travel by value in the launch)
-template <int D, class Walk>
+template <typename T, int D, class Walk>
 cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t stream) {
   using C = FwdCfg<D>;
   if (p.lk <= 0) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  if (!encode_map<D>(&mq, p.q, batch, p.lq, p.heads, p.q_sb, p.q_sl,
+  if (!encode_map<T, D>(&mq, p.q, batch, p.lq, p.heads, p.q_sb, p.q_sl,
                      p.q_sh) ||
-      !encode_map<D>(&mk, p.k, batch, p.lk, p.heads, p.k_sb, p.k_sl,
+      !encode_map<T, D>(&mk, p.k, batch, p.lk, p.heads, p.k_sb, p.k_sl,
                      p.k_sh) ||
-      !encode_map<D>(&mv, p.v, batch, p.lk, p.heads, p.v_sb, p.v_sl,
+      !encode_map<T, D>(&mv, p.v, batch, p.lk, p.heads, p.v_sb, p.v_sl,
                      p.v_sh))
     return cudaErrorInvalidValue;
-  auto kern = flash_fwd_wgmma_kernel<D, Walk>;
+  auto kern = flash_fwd_wgmma_kernel<T, D, Walk>;
   static bool opted_in = false;
   const cudaError_t e = opt_in(kern, C::kSmem, opted_in);
   if (e != cudaSuccess) return e;
@@ -1491,18 +1530,18 @@ cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t stream) {
 }
 
 // the dq (kind kDq) or dkv kernel
-template <int D, class Walk>
+template <typename T, int D, class Walk>
 cudaError_t launch_bwd(Kind kind, const Params& p, int batch,
                        cudaStream_t stream) {
   if (p.lk <= 0) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo;
-  if (!encode_map<D>(&mq, p.q, batch, p.lq, p.heads, p.q_sb, p.q_sl,
+  if (!encode_map<T, D>(&mq, p.q, batch, p.lq, p.heads, p.q_sb, p.q_sl,
                      p.q_sh) ||
-      !encode_map<D>(&mk, p.k, batch, p.lk, p.heads, p.k_sb, p.k_sl,
+      !encode_map<T, D>(&mk, p.k, batch, p.lk, p.heads, p.k_sb, p.k_sl,
                      p.k_sh) ||
-      !encode_map<D>(&mv, p.v, batch, p.lk, p.heads, p.v_sb, p.v_sl,
+      !encode_map<T, D>(&mv, p.v, batch, p.lk, p.heads, p.v_sb, p.v_sl,
                      p.v_sh) ||
-      !encode_map<D>(&mdo, p.dout, batch, p.lq, p.heads, p.do_sb, p.do_sl,
+      !encode_map<T, D>(&mdo, p.dout, batch, p.lq, p.heads, p.do_sb, p.do_sl,
                      p.do_sh))
     return cudaErrorInvalidValue;
   const dim3 grid = Walk::grid(p, batch, kind == kDkv);
@@ -1510,13 +1549,13 @@ cudaError_t launch_bwd(Kind kind, const Params& p, int batch,
   cudaError_t e;
   if (kind == kDq) {
     constexpr int smem = BwdCfg<D, false, Walk::kIndexed>::kSmem;
-    auto kern = flash_bwd_dq_wgmma_kernel<D, Walk>;
+    auto kern = flash_bwd_dq_wgmma_kernel<T, D, Walk>;
     static bool opted_in = false;
     if ((e = opt_in(kern, smem, opted_in)) != cudaSuccess) return e;
     kern<<<grid, kHwThreads, smem, stream>>>(mq, mk, mv, mdo, p);
   } else {
     constexpr int smem = BwdCfg<D, true, Walk::kIndexed>::kSmem;
-    auto kern = flash_bwd_dkv_wgmma_kernel<D, Walk>;
+    auto kern = flash_bwd_dkv_wgmma_kernel<T, D, Walk>;
     static bool opted_in = false;
     if ((e = opt_in(kern, smem, opted_in)) != cudaSuccess) return e;
     kern<<<grid, kHwThreads, smem, stream>>>(mq, mk, mv, mdo, p);
@@ -1536,13 +1575,13 @@ size_t smem_bytes(Kind kind) {
   return sizeof(float) * (4 * tile + 2 * scores + 2 * kBQ);
 }
 
-// bf16 on the Hopper kernels (hw::); fp32 on the scalar kernels
+// bf16 and fp16 on the Hopper kernels (hw::); fp32 on the scalar kernels
 template <typename T, int D, class Walk>
 cudaError_t launch(Kind kind, const Params& p, int batch,
                    cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return kind == kFwd ? hw::launch_fwd<D, Walk>(p, batch, stream)
-                        : hw::launch_bwd<D, Walk>(kind, p, batch, stream);
+  if constexpr (sizeof(T) == 2) {
+    return kind == kFwd ? hw::launch_fwd<T, D, Walk>(p, batch, stream)
+                        : hw::launch_bwd<T, D, Walk>(kind, p, batch, stream);
   } else {
     void (*kern)(const Params) =
         kind == kFwd  ? flash_fwd_kernel<D, Walk>
@@ -1582,13 +1621,13 @@ int run(Kind kind, const Params& p, int batch, int head_dim, int dtype,
         void* stream) {
   const int rows = kind == kDkv ? p.lk : p.lq;
   if (batch <= 0 || p.heads <= 0 || (long long)batch * p.heads > 65535 ||
-      rows <= 0 || p.lq < 0 || p.lk < 0 || (dtype != 0 && dtype != 1))
+      rows <= 0 || p.lq < 0 || p.lk < 0 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      dtype == 0 ? launch_d<float, Walk>(kind, p, batch, head_dim, s)
-                 : launch_d<__nv_bfloat16, Walk>(kind, p, batch, head_dim,
-                                                 s));
+      dtype == 0   ? launch_d<float, Walk>(kind, p, batch, head_dim, s)
+      : dtype == 1 ? launch_d<__nv_bfloat16, Walk>(kind, p, batch, head_dim, s)
+                   : launch_d<__half, Walk>(kind, p, batch, head_dim, s));
 }
 
 // strides: 12 element strides (batch, seq, head) of q, k, v, do, in that

@@ -31,7 +31,7 @@ NEG_INF = -1e30   # masked-score floor, as ops/attention/flash.py:42
 
 _LAUNCHES = LaunchCounter("paged_decode_fwd", "paged_decode_quant_fwd",
                           "decode_fwd")
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _QUANT_STORAGE = {torch.int8: 1}          # + float8_e4m3fn: 2, where built
 if hasattr(torch, "float8_e4m3fn"):
     _QUANT_STORAGE[torch.float8_e4m3fn] = 2
@@ -40,10 +40,11 @@ SPLIT_KEYS = 64        # keys per split, at least: one tile of the kernel
 MAX_SPLITS = 4         # splits of a sequence: one thread block cluster
 
 
-def launch_counts():
+def launch_counts(dtype=None):
     """Kernel launches since the last :func:`reset_launch_counts`
-    (CUDA-graph replays included, ``ops/launch_counter.py``)."""
-    return _LAUNCHES.counts()
+    (CUDA-graph replays included, ``ops/launch_counter.py``); with
+    ``dtype``, those of that compute dtype's instantiation."""
+    return _LAUNCHES.counts(dtype)
 
 
 def reset_launch_counts():
@@ -139,7 +140,8 @@ def paged_kernel_decision(*, device_type, num_heads, num_kv_heads,
                      if per_load == 16 else "") +
                   f"and at most {MAX_HEAD_DIM}")
     elif dtype is not None and dtype not in _KERNEL_DTYPES:
-        reason = f"dtype {dtype} (the kernels take float32 and bfloat16)"
+        reason = (f"dtype {dtype} (the kernels take float32, bfloat16 "
+                  "and float16)")
     elif has_bias:
         pools = "dequantized " if quantized else ""
         return {"path": "kernel",
@@ -308,7 +310,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, positions, *,
             out.data_ptr(), page_table.data_ptr(), positions.data_ptr(),
             *shape_args, stream)
     _raise_if_failed(name, err)
-    _LAUNCHES.add(name)
+    _LAUNCHES.add(name, q.dtype)
     return out
 
 
@@ -368,5 +370,5 @@ def decode_attention(q, k_cache, v_cache, *, bias, scale=None):
         dense_split_keys(max_len), scale, _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed("decode_fwd", err)
-    _LAUNCHES.add("decode_fwd")
+    _LAUNCHES.add("decode_fwd", q.dtype)
     return out

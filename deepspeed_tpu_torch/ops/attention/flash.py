@@ -9,7 +9,7 @@ logsumexp), and the FlashAttention-2 backward pair ``flash_bwd_dq`` /
 a plain PyTorch version beside it (:func:`flash_fwd_plain`,
 :func:`flash_bwd_plain`) with the same inputs, outputs and numerics.
 
-In bf16 all three are Hopper kernels (TMA, ``wgmma``): the backward pair
+In bf16 and fp16 all three are Hopper kernels (TMA, ``wgmma``): the backward pair
 loads each block's own tiles once, keeps the tiles it walks in a TMA
 ring, and makes p and ds in registers; the wrapper hands it q, k, v and
 do by :func:`tma_ok`'s copy rule.  Neither kernel of the pair uses
@@ -39,14 +39,15 @@ from deepspeed_tpu_torch.ops.launch_counter import LaunchCounter
 NEG_INF = -1e30   # masked-score floor (flash.py:42), not -inf
 
 _LAUNCHES = LaunchCounter("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (32, 64, 128)
 
 
-def launch_counts():
+def launch_counts(dtype=None):
     """Kernel launches since the last :func:`reset_launch_counts`
-    (CUDA-graph replays included, ``ops/launch_counter.py``)."""
-    return _LAUNCHES.counts()
+    (CUDA-graph replays included, ``ops/launch_counter.py``); with
+    ``dtype``, those of that dtype's instantiation."""
+    return _LAUNCHES.counts(dtype)
 
 
 def reset_launch_counts():
@@ -139,7 +140,7 @@ def _check_cuda(name, q, k, v, *extra):
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{name}: dtype {q.dtype} (the kernels take "
-                         "float32 and bfloat16)")
+                         "float32, bfloat16 and float16)")
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim={d} (the kernels take "
                          f"{HEAD_DIMS})")
@@ -161,7 +162,7 @@ def _rows(x):
 
 
 def tma_ok(shape, strides, data_ptr, elem_size):
-    """Whether the bf16 kernels' tensor maps read a ``[b, len, heads,
+    """Whether the 16-bit kernels' tensor maps read a ``[b, len, heads,
     d]`` operand with these element ``strides`` in place: TMA wants a
     16-byte aligned base, a unit head-dim stride, and for every other
     dim with more than one entry a stride that is a whole number of 16
@@ -184,10 +185,10 @@ def tma_ok(shape, strides, data_ptr, elem_size):
 def _tma_operands(*ts):
     """The ``[b, len, heads, d]`` operands (q, k, v, and do for the
     backward) as the kernels read them: unit head-dim strides, and for
-    bf16 (read by TMA) a contiguous copy of an operand that
+    bf16 and fp16 (read by TMA) a contiguous copy of an operand that
     :func:`tma_ok` refuses.  A copy, not a fallback: the kernel runs."""
     ts = tuple(_rows(t) for t in ts)
-    if ts[0].dtype != torch.bfloat16:
+    if ts[0].dtype == torch.float32:
         return ts
     return tuple(
         t if tma_ok(t.shape, t.stride(), t.data_ptr(), t.element_size())
@@ -227,7 +228,7 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
         int(causal), _scale(scale, d), _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed("flash_fwd", err)
-    _LAUNCHES.add("flash_fwd")
+    _LAUNCHES.add("flash_fwd", q.dtype)
     return o, lse
 
 
@@ -259,7 +260,7 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
         _scale(scale, d), _KERNEL_DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed(name, err)
-    _LAUNCHES.add(name)
+    _LAUNCHES.add(name, q.dtype)
 
 
 def flash_bwd(q, k, v, o, lse, do, dlse=None, *, causal=True, scale=None):

@@ -7,7 +7,10 @@ so no PyTorch header is compiled and a build takes seconds.  Libraries
 land in ``build/`` at the repository root (listed in ``.gitignore``),
 named ``<op>_<hash>.so``, the hash over the flags, the source and every
 header it includes with quotes, so an edited source or shared header
-rebuilds.  There is no fallback: without a CUDA device or without
+rebuilds.  nvcc's log (``-Xptxas -v``: registers and spills per kernel)
+is kept beside each library as ``<op>_<hash>.so.log``, written before
+the library is moved into place, so a cached build returns the same log
+as the process that built it.  There is no fallback: without a CUDA device or without
 ``nvcc``, :meth:`load` raises :class:`OpBuilderError`.
 """
 
@@ -84,6 +87,10 @@ class CUDAOpBuilder:
                                  "CUDA_HOME or put nvcc on PATH)")
         return nvcc
 
+    def log_path(self):
+        """nvcc's log of the library at :meth:`so_path`."""
+        return self.so_path() + ".log"
+
     def start_build(self):
         """Start ``nvcc`` for this op unless its library exists; returns
         the running process (or None) so several builds overlap."""
@@ -100,13 +107,25 @@ class CUDAOpBuilder:
         return proc
 
     def finish_build(self, proc):
-        """Wait for :meth:`start_build`'s process; returns nvcc's log."""
+        """Wait for :meth:`start_build`'s process; returns nvcc's log, or
+        for a library that was already built (``proc`` None) the log kept
+        beside it ("" when it has none)."""
         if proc is None:
-            return ""
+            try:
+                with open(self.log_path()) as f:
+                    return f.read()
+            except FileNotFoundError:
+                return ""
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise OpBuilderError(f"building {self.NAME} failed:\n"
                                  f"{' '.join(proc.cmd)}\n{log}")
+        # the log first, each by an atomic rename: a library in place
+        # always has its log beside it
+        tmp_log = f"{proc.so}.log.{os.getpid()}.tmp"
+        with open(tmp_log, "w") as f:
+            f.write(log)
+        os.replace(tmp_log, proc.so + ".log")
         os.replace(proc.tmp, proc.so)
         return log
 

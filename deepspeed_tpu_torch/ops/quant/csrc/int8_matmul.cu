@@ -1,6 +1,6 @@
 // Weight-only int8 dequant-matmul for Hopper (sm_90a):
 //   out[m, n] = sum over groups g of (x[:, g] @ float(q[g, :])) * scale[g, :]
-// with x [m, k] float32 or bfloat16, q [k, n] int8 (n contiguous), scale
+// with x [m, k] float32, bfloat16 or float16, q [k, n] int8 (n contiguous), scale
 // [k / G, n] float32, fp32 accumulation, out in x's dtype.
 //
 // Replaces the TPU kernel of deepspeed_tpu/ops/quant/kernels.py:
@@ -47,7 +47,9 @@
 //    words (4 weight rows x its 4 columns; the swizzle leaves two lanes a
 //    bank at most): each byte becomes an exact fp32 (a byte permute into
 //    the mantissa of 2^23 and one subtract) and two of them one bf16x2
-//    register (the fp32's upper halves, exact for |v| <= 128).  Inside a
+//    register (the fp32's upper halves, exact for |v| <= 128).  fp16 x
+//    runs the same body with the .f16 mma and __floats2half2_rn for the
+//    pair (exact too: an int8 value has at most 8 significant bits).  Inside a
 //    16-row k-step the physical rows 4t..4t+3 are the fragment's k slots
 //    2t, 2t+1, 2t+8, 2t+9, so x's B fragment is one 8-byte load of row g.
 //    A stage's words are all loaded before its first product (a group's
@@ -61,7 +63,7 @@
 //  * fp32 stays off the tensor cores (the serving oracle; TF32 would
 //    round x): the same ring and split feed FMAs, a thread a column, over
 //    a stage's rows in segments that end where a group does (the scale
-//    step once a segment, no test a row).  A bf16 call whose group is not
+//    step once a segment, no test a row).  A 16-bit call whose group is not
 //    a multiple of 16 (the mma's depth) runs the same FMA body.
 //  * ragged shapes: a tensor map needs 16-byte row strides, so a call with
 //    n % 16 != 0 (or G % 16 != 0) has its producer fill the same ring, in
@@ -77,6 +79,7 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,6 +102,7 @@ static_assert(kConsumerWarps * 32 == kBN,
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
@@ -106,6 +110,9 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __host__ __device__ constexpr size_t round1k(size_t b) {
@@ -223,15 +230,25 @@ __device__ __forceinline__ void cluster_sync() {
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a (16x16 T, row) * b (16x8 T, col), fp32 accumulate; T is bf16
+// or fp16
+template <typename T>
+__device__ __forceinline__ void mma16(float* c, const unsigned* a,
+                                      unsigned b0, unsigned b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // byte c of a word of four int8 -> float(value), exactly: byte c of
@@ -242,10 +259,18 @@ __device__ __forceinline__ float byte_to_float(uint32_t biased, int c) {
          8388736.f;
 }
 
-// two exact floats of at most 8 significant bits -> one bf16x2 register
-// (lo in the low half): their upper halves, exactly
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+// two exact floats of at most 8 significant bits (int8 values) -> one
+// register of two T (lo in the low half), exactly: for bf16 the floats'
+// upper halves; for fp16 the round-to-nearest conversion, exact for
+// integers of at most 11 bits
+template <typename T>
+__device__ __forceinline__ unsigned pack_w(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+  } else {
+    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+  }
 }
 
 // The split and the stage geometry of a block, the same in the producer
@@ -266,8 +291,8 @@ struct Walk {
   __device__ int rows(int it) const { return min(bk, k_range - it * bk); }
 };
 
-// T: x's and the output's type; kMma: bf16 on the tensor cores (G % 16
-// == 0), else FMAs; kTma: the ring is filled by TMA through the tensor
+// T: x's and the output's type; kMma: bf16 or fp16 on the tensor cores
+// (G % 16 == 0), else FMAs; kTma: the ring is filled by TMA through the tensor
 // maps (n % 16 == 0, G % 16 == 0), else by ordinary loads; kRows: x rows
 // staged (mma: 8, 16 or 64; FMA: 4 or 64) - the block's row count mt is
 // at most kRows
@@ -276,9 +301,9 @@ __global__ void __launch_bounds__(kThreads) int8_matmul_kernel(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_x,
     const __grid_constant__ CUtensorMap map_s, const Params p) {
-  static_assert(!kMma || std::is_same<T, __nv_bfloat16>::value,
-                "the tensor-core path is bf16");
-  constexpr bool kSwizzledX = sizeof(T) == 2;   // bf16 x: 128-byte rows
+  static_assert(!kMma || sizeof(T) == 2,
+                "the tensor-core path is bf16 or fp16");
+  constexpr bool kSwizzledX = sizeof(T) == 2;   // 16-bit x: 128-byte rows
   const Layout<T> L(kRows);
   // the ring's base at the next 1024-byte boundary (the swizzle's
   // period), as an offset from the shared array so that the compiler keeps
@@ -356,7 +381,7 @@ __global__ void __launch_bounds__(kThreads) int8_matmul_kernel(
       }
     }
   } else if constexpr (kMma) {
-    // ---- bf16 consumers: warp w owns columns [32 w, 32 w + 32); thread
+    // ---- bf16 / fp16 consumers: warp w owns columns [32 w, 32 w + 32); thread
     // (g, t) the columns 32 w + 4 g + {0..3}, which are the rows g, g + 8
     // of its two 16-row M blocks (col 4g+2b: block b row g; 4g+2b+1: block
     // b row g + 8), and x rows nb * 8 + 2t, +1 of each 8-row N block
@@ -424,17 +449,17 @@ __global__ void __launch_bounds__(kThreads) int8_matmul_kernel(
 #pragma unroll
             for (int h = 0; h < 2; ++h) {      // h: row g or g + 8
               const int c = 2 * b + h;
-              af[b][h] = pack_bf16(byte_to_float(wv[s][0], c),
+              af[b][h] = pack_w<T>(byte_to_float(wv[s][0], c),
                                    byte_to_float(wv[s][1], c));
-              af[b][h + 2] = pack_bf16(byte_to_float(wv[s][2], c),
+              af[b][h + 2] = pack_w<T>(byte_to_float(wv[s][2], c),
                                        byte_to_float(wv[s][3], c));
             }
 #pragma unroll
           for (int nb = 0; nb < kNB; ++nb) {
             const uint2 bf = kEarlyB ? bx[kEarlyB ? s : 0][nb]
                 : *reinterpret_cast<const uint2*>(xt + b_off[s] + 1024 * nb);
-            mma_bf16(part[0][nb], af[0], bf.x, bf.y);
-            mma_bf16(part[1][nb], af[1], bf.x, bf.y);
+            mma16<T>(part[0][nb], af[0], bf.x, bf.y);
+            mma16<T>(part[1][nb], af[1], bf.x, bf.y);
           }
           if (--to_end == 0) {                // the group's end
             to_end = steps_per_group;
@@ -471,7 +496,7 @@ __global__ void __launch_bounds__(kThreads) int8_matmul_kernel(
           partial[row * kBN + col] = acc[b][nb][i];
         }
   } else {
-    // ---- FMA consumers (fp32, and bf16 with G % 16 != 0): thread c owns
+    // ---- FMA consumers (fp32, and 16 bits with G % 16 != 0): thread c owns
     // column c and every x row of the block
     const int c = tid;
     int to_end = G;                           // rows left in the group
@@ -638,13 +663,15 @@ cudaError_t launch_k(const Params& p, cudaStream_t stream) {
   // operation: safe while a CUDA graph is captured)
   CUtensorMap map_q = {}, map_x = {}, map_s = {};
   if constexpr (kTma) {
-    constexpr bool kBf16 = sizeof(T) == 2;
-    const CUtensorMapDataType xt = kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    constexpr bool k16 = sizeof(T) == 2;
+    const CUtensorMapDataType xt =
+        std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+        : k16                          ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
     if (!encode_2d(&map_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.q, p.k, p.n,
                    kBK, kBN, true) ||
         !encode_2d(&map_x, xt, (int)sizeof(T), p.x, p.m, p.k, kRows, kBK,
-                   kBf16) ||
+                   k16) ||
         !encode_2d(&map_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.scale,
                    p.k / p.group, p.n, p.ends, kBN, false))
       return cudaErrorInvalidValue;
@@ -688,9 +715,17 @@ cudaError_t launch_rows(const Params& p, cudaStream_t stream) {
   }
 }
 
+// a 16-bit x: the tensor cores where G % 16 == 0, else FMAs
+template <typename T>
+cudaError_t launch16(const Params& p, bool tma, cudaStream_t stream) {
+  if (p.group % 16 != 0) return launch_rows<T, false, false>(p, stream);
+  return tma ? launch_rows<T, true, true>(p, stream)
+             : launch_rows<T, true, false>(p, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and out).  k must be a whole number
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x and out).  k must be a whole number
 // of groups; splits (1-8, ops/quant/kernels.py k_splits) blocks share
 // each column tile's k by whole groups, none of them empty.  x, q and
 // scale 16-byte aligned.  Returns a cudaError_t (0 = launched).
@@ -699,7 +734,7 @@ extern "C" int int8_matmul_fwd(const void* x, const void* q,
                                int n, int group, int splits, int dtype,
                                void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || group <= 0 || k % group != 0 ||
-      (dtype != 0 && dtype != 1) || splits < 1 || splits > kMaxSplits ||
+      dtype < 0 || dtype > 2 || splits < 1 || splits > kMaxSplits ||
       (n + kBN - 1) / kBN > 65535 || (m + kMaxRows - 1) / kMaxRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int groups = k / group;
@@ -718,10 +753,9 @@ extern "C" int int8_matmul_fwd(const void* x, const void* q,
   if (dtype == 0)
     e = tma ? launch_rows<float, false, true>(p, s)
             : launch_rows<float, false, false>(p, s);
-  else if (group % 16 != 0)
-    e = launch_rows<__nv_bfloat16, false, false>(p, s);
+  else if (dtype == 1)
+    e = launch16<__nv_bfloat16>(p, tma, s);
   else
-    e = tma ? launch_rows<__nv_bfloat16, true, true>(p, s)
-            : launch_rows<__nv_bfloat16, true, false>(p, s);
+    e = launch16<__half>(p, tma, s);
   return static_cast<int>(e);
 }

@@ -11,8 +11,8 @@ the weights — that is the function's arithmetic, and
 
 The hand-written CUDA kernel for Hopper is ``csrc/int8_matmul.cu`` (its
 header note names the TPU kernel it replaces, its bound and the design):
-a producer warp keeps int8 weight tiles in flight by TMA, bf16 runs on
-the tensor cores, and k is split by whole groups over the blocks of a
+a producer warp keeps int8 weight tiles in flight by TMA, bf16 and fp16
+run on the tensor cores, and k is split by whole groups over the blocks of a
 thread block cluster (:func:`k_splits`), merged in split order.  The
 weight stays int8 in device memory and is never materialised
 dequantized.  The dispatch rule is the tensor's device: a CPU tensor
@@ -25,17 +25,18 @@ import torch
 from deepspeed_tpu_torch.ops.launch_counter import LaunchCounter
 
 _LAUNCHES = LaunchCounter("int8_matmul_fwd")
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BLOCK_N = 128          # output columns of a block of the kernel
 MAX_K_SPLITS = 8       # blocks of a thread block cluster
 NUM_SMS = 132          # the H100 SXM's streaming multiprocessors
 TARGET_BLOCKS = 256    # about two blocks for each of them
 
 
-def launch_counts():
+def launch_counts(dtype=None):
     """Kernel launches since the last :func:`reset_launch_counts`
-    (CUDA-graph replays included, ``ops/launch_counter.py``)."""
-    return _LAUNCHES.counts()
+    (CUDA-graph replays included, ``ops/launch_counter.py``); with
+    ``dtype``, those of that dtype's instantiation."""
+    return _LAUNCHES.counts(dtype)
 
 
 def reset_launch_counts():
@@ -108,7 +109,7 @@ def int8_matmul(x, q, scale):
         raise ValueError(f"int8_matmul: no kernel for device {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"int8_matmul: dtype {x.dtype} (the kernel takes "
-                         "float32 and bfloat16)")
+                         "float32, bfloat16 and float16)")
     if scale.dtype != torch.float32:
         raise ValueError(f"int8_matmul: scale must be float32, got "
                          f"{scale.dtype}")
@@ -129,5 +130,5 @@ def int8_matmul(x, q, scale):
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul_fwd launch failed: cudaError {err}")
-    _LAUNCHES.add("int8_matmul_fwd")
+    _LAUNCHES.add("int8_matmul_fwd", x.dtype)
     return out

@@ -6,7 +6,9 @@
 
 Builds GPT-2 small at full width (``--layers`` cuts depth) through
 ``deepspeed_tpu_torch.initialize`` with the config ``bench.py`` trains
-(AdamW lr 1e-4, weight decay 0.01, ZeRO stage 1, gas 1), seeded random
+(AdamW lr 1e-4, weight decay 0.01, ZeRO stage 1, gas 1; ``--dtype
+float16`` turns on the ``fp16`` section, dynamic loss scaling with its
+overflow check and masked update), seeded random
 weights and batches, takes two warm-up steps, times one unprofiled step
 on the host clock and profiles one more with ``torch.profiler`` (CPU +
 CUDA activities).  Prints one JSON object: the host-clock step, the
@@ -74,6 +76,7 @@ def main():
               "optimizer": {"type": "AdamW",
                             "params": {"lr": 1e-4, "weight_decay": 0.01}},
               "bf16": {"enabled": args.dtype == "bfloat16"},
+              "fp16": {"enabled": args.dtype == "float16"},
               "zero_optimization": {"stage": 1},
               "steps_per_print": 1000000}
     engine = deepspeed_tpu_torch.initialize(model=GPT2(cfg), config=config,

@@ -4,7 +4,10 @@
 The same JSON keys for the sections this port runs — the batch sizes
 (``train_batch_size = micro * gas * world``, resolved as
 ``_resolve_batch_parameters``, ``config.py:279``), ``optimizer``,
-``scheduler``, ``bf16`` (or the older ``bfloat16``), ``gradient_clipping``,
+``scheduler``, ``bf16`` (or the older ``bfloat16``), ``fp16`` (dynamic or
+static loss scaling; with ``bf16`` both on it raises, as the JAX config
+does), ``data_types`` (its ``grad_accum_dtype`` is read by nothing, in
+the JAX package either), ``gradient_clipping``,
 ``gradient_predivide_factor``, ``steps_per_print``,
 ``zero_optimization.stage`` 0 or 1, ``mesh.data`` 1, ``checkpoint`` and
 ``checkpoint_engine``.  The port trains
@@ -24,8 +27,6 @@ from pydantic import BaseModel, ConfigDict, Field
 
 # JAX-package sections the port does not run yet -> ROADMAP.md item
 UNPORTED_SECTIONS = {
-    "fp16": "Queue A11 (fp16 with dynamic loss scaling)",
-    "data_types": "Queue A11 (fp16 with dynamic loss scaling)",
     "activation_checkpointing": "Queue A13 (activation checkpointing)",
     "progressive_layer_drop": "Queue A16 (PLD and random-LTD)",
     "data_efficiency": "Queue A16 (PLD and random-LTD)",
@@ -83,6 +84,38 @@ class SchedulerConfig(_Section):
 
 class Bf16Config(_Section):
     enabled: bool = False
+
+
+class Fp16Config(_Section):
+    """``fp16`` (the JAX ``Fp16Config``, ``runtime/config.py:28-43``):
+    ``loss_scale`` 0 is dynamic scaling from ``2 **
+    initial_scale_power``; ``consecutive_hysteresis`` is the key the JAX
+    scaler reads from the section (``loss_scaler.py:46``).  ``auto_cast``
+    is accepted as the JAX config accepts it; nothing reads it there."""
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+    consecutive_hysteresis: bool = False
+
+    @property
+    def dynamic_loss_scale(self):
+        return self.loss_scale == 0
+
+    @property
+    def initial_dynamic_scale(self):
+        return 2 ** self.initial_scale_power if self.dynamic_loss_scale \
+            else self.loss_scale
+
+
+class DataTypesConfig(_Section):
+    """``data_types`` (JAX ``:50-51``): accepted; no reader of
+    ``grad_accum_dtype`` exists in the JAX runtime either, so gradients
+    accumulate in fp32 whatever it says."""
+    grad_accum_dtype: Optional[str] = None
 
 
 class ZeroConfig(BaseModel):
@@ -176,6 +209,8 @@ class DeepSpeedConfig(BaseModel):
     optimizer: OptimizerConfig = Field(default_factory=OptimizerConfig)
     scheduler: SchedulerConfig = Field(default_factory=SchedulerConfig)
     bf16: Bf16Config = Field(default_factory=Bf16Config, alias="bfloat16")
+    fp16: Fp16Config = Field(default_factory=Fp16Config)
+    data_types: DataTypesConfig = Field(default_factory=DataTypesConfig)
     gradient_clipping: float = 0.0
     gradient_predivide_factor: float = 1.0
     steps_per_print: int = 10
@@ -204,6 +239,8 @@ class DeepSpeedConfig(BaseModel):
             if _turns_on(value):
                 raise _unported(f"training config section {key!r}",
                                 UNPORTED_SECTIONS[key])
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
         self._resolve_batch_parameters()
 
     def _resolve_batch_parameters(self):
@@ -245,4 +282,6 @@ class DeepSpeedConfig(BaseModel):
 
     @property
     def precision_dtype(self):
+        if self.fp16.enabled:
+            return "float16"
         return "bfloat16" if self.bf16.enabled else "float32"

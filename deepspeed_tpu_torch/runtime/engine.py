@@ -3,16 +3,24 @@ of ``deepspeed_tpu/runtime/engine.py``).  Build it with
 :func:`deepspeed_tpu_torch.initialize`.
 
 One device, fp32 master parameters, the compute dtype of the config
-(``bf16.enabled``) equal to the model's ``cfg.dtype``: the model casts
-the masters inside autograd, so gradients land on them in fp32.  A train
-step is the JAX engine's math, run eagerly:
+(``bf16.enabled`` or ``fp16.enabled``) equal to the model's
+``cfg.dtype``: the model casts the masters inside autograd, so gradients
+land on them in fp32.  A train step is the JAX engine's math, run
+eagerly:
 
 * ``fwd_bwd`` (``engine.py:851``): ``loss * scale / gas`` backward, with
-  ``scale`` 1 (fp16 loss scaling is ROADMAP.md Queue A11); over a gas
-  window the fp32 gradients sum in ``.grad``;
-* ``apply_grads`` (``:880``): divide by ``gradient_predivide_factor``,
-  take the global norm, clip by ``min(1, clip / (norm + 1e-6))``, then
-  the optimizer at the learning rate of the schedule for this step.
+  ``scale`` the fp16 loss scale (``runtime/fp16/loss_scaler.py``; no
+  factor at all in bf16 and fp32, where it is 1); over a gas window the
+  fp32 gradients sum in ``.grad``;
+* ``apply_grads`` (``:880``): divide by ``scale *
+  gradient_predivide_factor``, take the global norm, clip by ``min(1,
+  clip / (norm + 1e-6))``, then the optimizer at the learning rate of
+  the schedule for this step.  In fp16 an overflow (a non-finite
+  gradient) keeps the masters, the moments and the optimizer's count as
+  they were, bit for bit, and counts a skipped step; the step counter
+  and the schedule advance either way, and the scale is updated after.
+  The overflow flag, the skip and the scale stay on the device, so a
+  step reads nothing back to the host (``train_loop(sync=False)``).
 
 ``forward`` / ``backward`` / ``step`` are the per-micro-batch API;
 ``train_batch`` runs a whole window and ``train_loop`` K windows, the
@@ -39,12 +47,15 @@ from deepspeed_tpu_torch.checkpoint.params import PARAMS, jax_leaf_names
 from deepspeed_tpu_torch.models.gpt2 import (GPT2, gpt2_loss_fn,
                                              init_gpt2_params)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
+    has_overflow, make_loss_scale_state, update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
                                                       get_lr_schedule)
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 # the port's optimizer state in a checkpoint (its own names, beside the
 # JAX ones of the masters)
 OPT_STATE = ".torch_opt_state"
@@ -70,13 +81,24 @@ class DeepSpeedEngine:
             raise ValueError(
                 f"the config computes in {self._config.precision_dtype} but "
                 f"the model's cfg.dtype is {model.cfg.dtype}: set both "
-                "(bf16.enabled and GPTConfig(dtype=...)) to the same type")
+                "(bf16.enabled / fp16.enabled and GPTConfig(dtype=...)) to "
+                "the same type")
         self.module = model.to(device=self.device, dtype=torch.float32)
         self.loss_fn = loss_fn or self._default_loss_fn()
         opt = self._config.optimizer
         self.optimizer_name = opt.type or "adamw"
         self.optimizer, self._base_lr = build_optimizer(
             self.optimizer_name, opt.params, self.module.parameters())
+        # fp16: the scaler, the skipped steps and the optimizer's count on
+        # the device (the JAX TrainState's scaler / skipped_steps)
+        self.fp16_enabled = self._config.fp16.enabled
+        self.scaler = make_loss_scale_state(
+            self._config.fp16, self.fp16_enabled, self.device)
+        self._skipped = torch.zeros((), dtype=torch.int32,
+                                    device=self.device)
+        if self.fp16_enabled:
+            self.optimizer.count = torch.zeros((), dtype=torch.int64,
+                                               device=self.device)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
         self.gas = self._config.gradient_accumulation_steps
         self.micro_steps = 0
@@ -93,6 +115,16 @@ class DeepSpeedEngine:
     def get_global_grad_norm(self):
         norm = self._last_metrics.get("grad_norm")
         return None if norm is None else float(norm)
+
+    @property
+    def loss_scale(self):
+        """The current loss scale (a host read; 1 outside fp16)."""
+        return float(self.scaler.loss_scale)
+
+    @property
+    def skipped_steps(self):
+        """Optimizer steps skipped on an fp16 overflow (a host read)."""
+        return int(self._skipped)
 
     def get_lr(self):
         if self.lr_scheduler is not None:
@@ -165,11 +197,15 @@ class DeepSpeedEngine:
         return self._pending
 
     def backward(self, loss=None):
-        """Accumulate ``loss / gas`` gradients into the fp32 masters."""
+        """Accumulate ``loss * scale / gas`` gradients into the fp32
+        masters (``scale``: the fp16 loss scale; none in bf16 and fp32)."""
         if self._pending is None:
             raise RuntimeError("backward() must follow forward()")
         loss, self._pending = self._pending, None
-        (loss.float() / self.gas).backward()
+        if self.fp16_enabled:
+            (loss.float() * self.scaler.loss_scale / self.gas).backward()
+        else:
+            (loss.float() / self.gas).backward()
         self.micro_steps += 1
         self.global_samples += self._config.train_micro_batch_size_per_gpu
         return loss
@@ -195,7 +231,11 @@ class DeepSpeedEngine:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         predivide = float(self._config.gradient_predivide_factor or 1.0)
-        if predivide != 1.0:
+        overflow = None
+        if self.fp16_enabled:
+            torch._foreach_div_(grads, self.scaler.loss_scale * predivide)
+            overflow = has_overflow(grads)
+        elif predivide != 1.0:
             torch._foreach_div_(grads, predivide)
         gnorm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
@@ -203,10 +243,15 @@ class DeepSpeedEngine:
         if clip > 0.0:
             torch._foreach_mul_(
                 grads, torch.clamp(clip / (gnorm + 1e-6), max=1.0))
-        self.optimizer.step(grads, lr)
+        self.optimizer.step(grads, lr, skip=overflow)
         for p in params:
             p.grad = None
-        return {"grad_norm": gnorm, "lr": lr}
+        if overflow is None:
+            return {"grad_norm": gnorm, "lr": lr}
+        self.scaler = update_scale(self.scaler, overflow)
+        self._skipped += overflow.to(torch.int32)
+        return {"grad_norm": gnorm, "lr": lr, "overflow": overflow,
+                "loss_scale": self.scaler.loss_scale}
 
     def train_batch(self, data_iter=None, batches=None, sync=True):
         """One optimizer step over a window of ``gas`` micro batches;
@@ -250,10 +295,13 @@ class DeepSpeedEngine:
         return self.loss_fn(self.module, self._put_batch(batch))
 
     # -------------------------------------------------------- checkpoint
-    def _checkpoint_leaves(self, optimizer=True):
+    def _checkpoint_leaves(self, optimizer=True, scaler=True):
         """``(state, transposed)``: the checkpoint's leaves by name — the
         fp32 masters under their JAX names (``checkpoint/params.py``),
-        ``.step``, and with ``optimizer`` the AdamW moments and count under
+        ``.step``, with ``scaler`` the JAX TrainState's ``.skipped_steps``
+        and ``.scaler.loss_scale`` / ``.good_steps`` / ``.hysteresis``
+        (the unit scaler outside fp16, as the JAX engine writes it), and
+        with ``optimizer`` the AdamW moments and count under
         ``.torch_opt_state`` by ``state_dict`` name — and the names of the
         2-D masters written as ``[in, out]`` kernels."""
         names = jax_leaf_names(self.module)
@@ -265,12 +313,18 @@ class DeepSpeedEngine:
             if tr:
                 transposed.add(PARAMS + leaf)
         state[".step"] = np.int32(self.global_steps)
+        if scaler:
+            state[".skipped_steps"] = self._skipped
+            for key in ("loss_scale", "good_steps", "hysteresis"):
+                state[f".scaler.{key}"] = getattr(self.scaler, key)
         if optimizer:
             for key, moments in (("mu", self.optimizer.mu),
                                  ("nu", self.optimizer.nu)):
                 for name, m in zip(params, moments):
                     state[f"{OPT_STATE}[{key!r}][{name!r}]"] = m
-            state[f"{OPT_STATE}['count']"] = np.int64(self.optimizer.count)
+            count = self.optimizer.count
+            state[f"{OPT_STATE}['count']"] = count if \
+                isinstance(count, torch.Tensor) else np.int64(count)
         return state, transposed
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
@@ -329,8 +383,10 @@ class DeepSpeedEngine:
         defaults to ``latest`` (none there: nothing is loaded and ``(None,
         {})`` returns).  A JAX-written checkpoint has the masters but not
         the port's optimizer state: load it with
-        ``load_optimizer_states=False``.  Returns ``(path,
-        client_state)``."""
+        ``load_optimizer_states=False``.  An fp16 engine also restores the
+        loss scaler and the skipped steps (the JAX TrainState's names, so
+        a JAX fp16 checkpoint gives its scaler too); bf16 and fp32 engines
+        keep the unit scaler.  Returns ``(path, client_state)``."""
         self.wait_checkpoint()
         if tag is None:
             latest = os.path.join(load_dir, "latest")
@@ -341,7 +397,8 @@ class DeepSpeedEngine:
             with open(latest) as f:
                 tag = f.read().strip()
         path = os.path.join(load_dir, str(tag))
-        state, transposed = self._checkpoint_leaves(load_optimizer_states)
+        state, transposed = self._checkpoint_leaves(
+            load_optimizer_states, scaler=self.fp16_enabled)
         state.pop(".step")
         target = {name: tuple(t.shape)[::-1] if name in transposed
                   else tuple(np.shape(t)) for name, t in state.items()}
@@ -356,7 +413,9 @@ class DeepSpeedEngine:
         for name, dst in state.items():
             src = loaded.pop(name)
             if isinstance(dst, torch.Tensor):
-                dst.copy_(src.t() if name in transposed else src)
+                # scalars are stored as (1,)
+                dst.copy_(src.t() if name in transposed
+                          else src.reshape(dst.shape))
             else:
                 self.optimizer.count = int(src)
         self.global_steps = client.get("global_steps", 0)
@@ -376,7 +435,8 @@ class DeepSpeedEngine:
         Returns its path."""
         os.makedirs(save_dir, exist_ok=True)
         out = os.path.join(save_dir, save_filename)
-        state, transposed = self._checkpoint_leaves(optimizer=False)
+        state, transposed = self._checkpoint_leaves(optimizer=False,
+                                                    scaler=False)
         state.pop(".step")
 
         def leaves():

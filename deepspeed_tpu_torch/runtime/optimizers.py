@@ -36,22 +36,47 @@ class Adam:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads, lr):
-        """One update with ``grads`` (one per parameter) at ``lr``."""
+    def step(self, grads, lr, skip=None):
+        """One update with ``grads`` (one per parameter) at ``lr``.  With
+        ``skip`` (a bool scalar tensor: the fp16 overflow flag) the update
+        is taken on copies, and each state tensor takes ``where(skip, old,
+        new)`` (the JAX engine's skip, ``runtime/engine.py:903-910``): the
+        parameters, the moments and the count (then a device tensor) stay
+        as they were, bit for bit, where it is True, and nothing is read
+        back to the host."""
         b1, b2 = self.betas
-        self.count += 1
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
-        u = torch._foreach_div(self.mu, 1.0 - b1 ** self.count)
-        den = torch._foreach_div(self.nu, 1.0 - b2 ** self.count)
+        if skip is None:
+            self.count += 1
+            self._update(self.mu, self.nu, self.params, grads, lr,
+                         1.0 - b1 ** self.count, 1.0 - b2 ** self.count)
+            return
+        count = self.count + 1
+        c = count.double()
+        new = [[t.clone() for t in ts] for ts in (self.mu, self.nu,
+                                                   self.params)]
+        self._update(*new, grads, lr, (1.0 - torch.pow(b1, c)).float(),
+                     (1.0 - torch.pow(b2, c)).float())
+        for olds, news in zip((self.mu, self.nu, self.params), new):
+            for old, n in zip(olds, news):
+                torch.where(skip, old, n, out=old)
+        self.count = torch.where(skip, self.count, count)
+
+    def _update(self, mu, nu, params, grads, lr, bc1, bc2):
+        """The update in place on ``mu``, ``nu`` and ``params``, with the
+        bias corrections ``bc1`` / ``bc2`` (host floats or 0-d tensors)."""
+        b1, b2 = self.betas
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+        u = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         torch._foreach_div_(u, den)
         if self.weight_decay:
-            torch._foreach_add_(u, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, u, alpha=-float(lr))
+            torch._foreach_add_(u, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, u, alpha=-float(lr))
 
 
 def build_optimizer(name, params, parameters):

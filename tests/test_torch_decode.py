@@ -137,7 +137,7 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     (dict(num_heads=4, num_kv_heads=2, head_dim=12), "head_dim"),
     (dict(num_heads=4, num_kv_heads=2, head_dim=512), "head_dim"),
     (dict(num_heads=4, num_kv_heads=2, head_dim=16,
-          dtype=torch.float16), "dtype"),
+          dtype=torch.float64), "dtype"),
 ])
 def test_cuda_decision_refuses_what_the_kernel_does_not_take(kw, needle):
     """On a CUDA tensor the rule is kernel or refusal — never the plain

@@ -217,7 +217,7 @@ def test_autograd_on_strided_views_launches_the_kernels(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw,needle", [
-    (dict(d=48), "head_dim"), (dict(dtype=torch.float16), "dtype")])
+    (dict(d=48), "head_dim"), (dict(dtype=torch.float64), "dtype")])
 def test_kernel_refuses_what_it_does_not_take(cuda, kw, needle):
     d, dtype = kw.get("d", 64), kw.get("dtype", torch.float32)
     q = torch.zeros(1, 16, 2, d, device=cuda, dtype=dtype)

@@ -262,3 +262,40 @@ def test_policy_and_prefix_modules_import_without_jax(module):
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_fp16_training_imports_without_jax_or_a_built_library():
+    """The loss scaler and an fp16 train step on the CPU touch neither
+    jax, nor the JAX package, nor the op builder's library; the fp16
+    engine, like every entry point, needs a card or ``device="cpu"``."""
+    code = (
+        "import sys, ctypes\n"
+        "loaded = []\n"
+        "cdll = ctypes.CDLL\n"
+        "ctypes.CDLL = lambda *a, **k: (loaded.append(a), cdll(*a, **k))[1]\n"
+        "import torch\n"
+        "import deepspeed_tpu_torch as dt\n"
+        "from deepspeed_tpu_torch.models.gpt2 import GPT2, gpt2_tiny\n"
+        "from deepspeed_tpu_torch.runtime.fp16 import loss_scaler\n"
+        "cfg = {'train_micro_batch_size_per_gpu': 1,\n"
+        "       'fp16': {'enabled': True}}\n"
+        "eng = dt.initialize(model=GPT2(gpt2_tiny(dtype='float16')),\n"
+        "                    config=cfg, device='cpu')[0]\n"
+        "ids = torch.randint(0, 256, (1, 16))\n"
+        "eng.train_batch(batches=[{'input_ids': ids}])\n"
+        "assert eng.loss_scale == 65536.0 and eng.skipped_steps == 0\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'deepspeed_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "assert not [a for a in loaded if 'build' in str(a)], loaded\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "try:\n"
+        "    dt.initialize(model=GPT2(gpt2_tiny(dtype='float16')),\n"
+        "                  config=cfg)\n"
+        "except RuntimeError as e:\n"
+        "    assert \"device='cpu'\" in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('no card and no device: must raise')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

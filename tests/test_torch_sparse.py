@@ -595,7 +595,7 @@ def test_dense_config_forward_bit_equal_to_flash_fwd(cuda, causal, block):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw,needle", [
-    (dict(d=48), "head_dim"), (dict(dtype=torch.float16), "dtype")])
+    (dict(d=48), "head_dim"), (dict(dtype=torch.float64), "dtype")])
 def test_kernel_refuses_what_it_does_not_take(cuda, kw, needle):
     d, dtype = kw.get("d", 64), kw.get("dtype", torch.float32)
     q = torch.zeros(1, 128, 2, d, device=cuda, dtype=dtype)

@@ -249,7 +249,7 @@ def test_adam_spellings_match_the_jax_engine(opt):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("fp16", {"enabled": True}, "A11"),
+    ("zero_optimization", {"stage": 3}, "A12"),
     ("activation_checkpointing", {"partition_activations": True}, "A13"),
     ("progressive_layer_drop", {"enabled": True}, "A16"),
     ("data_efficiency", {"enabled": True}, "A16"),
